@@ -1,0 +1,861 @@
+"""CKKS crypto context on torch: key generation, encryption and the
+leveled evaluator with hybrid key switching (port of
+image_matching_tpu/ckks/context.py).
+
+Everything on the device is int32 RNS residues (bit-identical to the JAX
+package's uint32) in Montgomery form, evaluation (NTT) domain, held on the
+context's ``torch.device``.  Key generation is host numpy drawing from
+``np.random.default_rng(seed)`` in the JAX package's order, so both
+packages hold identical keys for one seed.  Encryption noise comes from a
+``torch.Generator`` seeded by the same numpy draw that the JAX package
+turns into a ``jax.random`` key; a ``noise`` callable replaces it (the
+parity tests feed the JAX package's noise through it).
+
+Key switching is hybrid with ``dnum`` digits over the full RNS basis.  Its
+three hot steps are CUDA kernels for CUDA tensors: the NTT (K1, in
+``ops/ntt.py``), fast base conversion (K3, ``_fbc``) and the key
+multiply-accumulate with the fused automorphism gather (K4, ``_ks_mac``).
+Each has its plain torch version here, used for CPU tensors.  The JAX
+package's ``vmap``/``scan`` over rotations become an explicit leading
+batch axis or a Python loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from image_matching_tpu.ckks import encoding
+from image_matching_tpu.ckks.params import SchemeParams, root_of_unity
+
+from ..ops import kernels
+from ..ops import modmath as mm
+from ..ops.ntt import NttPlan, host_ntt_fwd
+
+R = mm.R
+
+# noise(seed, batch, n) -> (v, e0, e1) signed integer arrays [batch, n]
+NoiseFn = Callable[[int, int, int], Tuple[np.ndarray, np.ndarray, np.ndarray]]
+
+
+@dataclasses.dataclass
+class Ciphertext:
+    """RNS-CKKS ciphertext: data [k, l, N] (k components, l limbs) in
+    Montgomery/eval form.  ``scale`` is exact metadata."""
+
+    data: torch.Tensor
+    scale: float
+
+    @property
+    def limbs(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def ncomp(self) -> int:
+        return self.data.shape[-3]
+
+
+@dataclasses.dataclass
+class Plaintext:
+    data: torch.Tensor  # [l, N] eval Montgomery
+    scale: float
+
+
+def _sample_gauss(rng, n, sigma):
+    return np.rint(rng.normal(0.0, sigma, size=n)).astype(np.int64)
+
+
+def _sample_ternary(rng, n):
+    return rng.integers(-1, 2, size=n).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# K3: fast base conversion — constants and plain version
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FbcConsts:
+    """Constants of one (source basis -> target basis) conversion, as
+    device tensors for the plain version plus one packed buffer for the
+    kernel."""
+
+    qs: torch.Tensor       # int64 [g, 1] source primes
+    rinv_s: torch.Tensor   # int64 [g, 1] R^{-1} mod q_i
+    qd: torch.Tensor       # int64 [t, 1] target primes
+    rinv_d: torch.Tensor
+    t_std: torch.Tensor    # int64 [g, 1] y_i = x_i * t_i (standard-form multiplier)
+    qhat: torch.Tensor     # int64 [g, t] (Qhat_i * R^2) mod p
+    qg_r2: torch.Tensor    # int64 [t, 1] (Q * R^2) mod p
+    inv_q: torch.Tensor    # float32 [g] 1/q_i
+    packed: torch.Tensor   # int32: qs, qnegs, t_std, inv_q, qd, qnegd, qg_r2, qhat
+
+
+def fbc_plain(x: torch.Tensor, c: FbcConsts) -> torch.Tensor:
+    """Plain fast base conversion of coefficient-domain Montgomery residues
+    [..., g, N] (source basis) -> [..., t, N] (target basis).  The float32
+    sum runs in index order, one rounding per product and per sum, as
+    XLA's reduction does; torch.round rounds half to even like jnp.round."""
+    y = mm.mont_mul(x, c.t_std, c.qs, c.rinv_s)  # standard form
+    yf = y.float()
+    g = y.shape[-2]
+    acc = yf[..., 0, :] * c.inv_q[0]
+    for i in range(1, g):
+        acc = acc + yf[..., i, :] * c.inv_q[i]
+    v = torch.round(acc).long()
+    out = None
+    for i in range(g):
+        term = mm.mont_mul(y[..., i:i + 1, :], c.qhat[i][:, None], c.qd, c.rinv_d)
+        out = term if out is None else mm.mod_add(out, term, c.qd)
+    corr = mm.mont_mul(v[..., None, :], c.qg_r2, c.qd, c.rinv_d)
+    return mm.mod_sub(out, corr, c.qd)
+
+
+# ---------------------------------------------------------------------------
+# K4: key-switching multiply-accumulate — plain version
+# ---------------------------------------------------------------------------
+
+
+def ks_mac_plain(digs: torch.Tensor, ksk: torch.Tensor, l: int, Lq: int,
+                 q: torch.Tensor, rinv: torch.Tensor,
+                 perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[r, c] = sum_j digs[r, j][..., perm_r] * ksk[r, j, c][rows]  mod p.
+
+    digs: [ndig, E, N] (shared) or [R, ndig, E, N]; ksk: [dnum, 2, Ltot, N]
+    (shared) or [R, dnum, 2, Ltot, N]; perms: None or int32 [R, N];
+    q, rinv: int64 [E, 1] over the extended limbs.  -> [R, 2, E, N]."""
+    rows = torch.cat([ksk[..., :l, :], ksk[..., Lq:, :]], dim=-2)
+    if digs.dim() == 3:
+        digs = digs[None]
+    if rows.dim() == 4:
+        rows = rows[None]
+    if perms is not None:
+        Rn = perms.shape[0]
+        digs = digs.expand(Rn, *digs.shape[1:])
+        idx = perms.long()[:, None, None, :].expand(Rn, *digs.shape[1:])
+        digs = torch.gather(digs, -1, idx)
+    acc0 = acc1 = None
+    for j in range(digs.shape[1]):
+        t0 = mm.mont_mul(digs[:, j], rows[:, j, 0], q, rinv)
+        t1 = mm.mont_mul(digs[:, j], rows[:, j, 1], q, rinv)
+        acc0 = t0 if acc0 is None else mm.mod_add(acc0, t0, q)
+        acc1 = t1 if acc1 is None else mm.mod_add(acc1, t1, q)
+    return torch.stack([acc0, acc1], dim=1)
+
+
+class CkksContext:
+    """Scheme context + evaluator.  One instance per parameter set, with
+    its tables and keys on ``device``."""
+
+    def __init__(self, params: SchemeParams, seed: int = 0, device="cpu",
+                 noise: Optional[NoiseFn] = None):
+        self.params = params
+        self.device = torch.device(device)
+        n = params.ring_dim
+        self.n = n
+        self.slots = params.slots
+        self.Lq = params.num_limbs
+        self.S = params.num_special
+        self.all_primes: Tuple[int, ...] = params.q_primes + params.sp_primes
+        self.Ltot = len(self.all_primes)
+        roots = [root_of_unity(q, 2 * n) for q in self.all_primes]
+        self.plan = NttPlan(n, self.all_primes, roots, device=self.device)
+
+        consts = [mm.host_mont_constants(int(q)) for q in self.all_primes]
+        self.q_np = np.array(self.all_primes, dtype=np.uint32)
+        self.qneg_np = np.array([c[0] for c in consts], dtype=np.uint32)
+        self.r2_np = np.array([c[2] for c in consts], dtype=np.uint32)
+        dev = self.device
+        self.q32 = mm.to_tensor(self.q_np, dev)       # kernels
+        self.qneg32 = mm.to_tensor(self.qneg_np, dev)
+        self.q64 = torch.tensor(self.all_primes, dtype=torch.int64, device=dev)
+        self.rinv64 = torch.tensor([mm.host_rinv(q) for q in self.all_primes],
+                                   dtype=torch.int64, device=dev)
+        self.r2_64 = torch.tensor(self.r2_np.astype(np.int64), device=dev)
+
+        # digit partition over full Q basis
+        g0 = math.ceil(self.Lq / params.dnum)
+        self.groups: List[List[int]] = [
+            list(range(j * g0, min((j + 1) * g0, self.Lq)))
+            for j in range(params.dnum)
+            if j * g0 < self.Lq
+        ]
+        self.dnum = len(self.groups)
+
+        self.seed = seed
+        self.noise = noise
+        self._rng = np.random.default_rng(seed)
+        self._qrow_cache: Dict = {}
+        self._const_cache: Dict = {}
+        self._fbc_cache: Dict = {}
+        self._perm_cache: Dict = {}
+        self._keygen()
+        # rotation keys live in stacked sets (perms [R, N], keys
+        # [R, dnum, 2, Ltot, N]) so groups of rotations run as one batched
+        # keyswitch
+        self._rot_sets: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.rot_keys: Dict[int, Dict[int, int]] = {}  # galois -> {set: row}
+        self._pow2_rots: List[int] = []
+        self._pt_cache: Dict = {}
+
+    # ------------------------------------------------------------------
+    # constant helpers
+    # ------------------------------------------------------------------
+
+    def _qrow(self, limbs: Sequence[int]):
+        """Per-limb (q, R^{-1} mod q) int64 views [l, 1]."""
+        key = tuple(limbs)
+        if key not in self._qrow_cache:
+            idx = torch.tensor(key, dtype=torch.int64, device=self.device)
+            self._qrow_cache[key] = (self.q64[idx][:, None], self.rinv64[idx][:, None])
+        return self._qrow_cache[key]
+
+    def _limb_consts(self, name, limbs: Sequence[int], fn) -> torch.Tensor:
+        """Cached int64 [l, 1] tensor of fn(q_i) over the given limbs."""
+        key = (name, tuple(limbs))
+        if key not in self._const_cache:
+            vals = [fn(self.all_primes[i]) for i in limbs]
+            self._const_cache[key] = torch.tensor(
+                vals, dtype=torch.int64, device=self.device)[:, None]
+        return self._const_cache[key]
+
+    def _mont_const(self, value: int, limbs: Sequence[int]) -> torch.Tensor:
+        """Montgomery form of an integer constant per limb, int64 [l, 1]."""
+        v = int(value)
+        return self._limb_consts(("mont", v), limbs, lambda q: v % q * (R % q) % q)
+
+    @property
+    def fresh_scale(self) -> float:
+        """Scale for fresh encryptions: sqrt(Delta * q_top * q_top2) when
+        fresh_levels == 1 (so two rescales after the first ct*ct product
+        land exactly on Delta), else Delta."""
+        p = self.params
+        if p.fresh_levels == 1:
+            return math.sqrt(
+                p.scale * self.all_primes[self.Lq - 1] * self.all_primes[self.Lq - 2]
+            )
+        return p.scale
+
+    def rescale_score(self, ct: Ciphertext) -> Ciphertext:
+        """Rescale after a product of two fresh ciphertexts: 1+fresh_levels
+        rescales, landing the scale back on ~Delta."""
+        for _ in range(1 + self.params.fresh_levels):
+            ct = self.rescale(ct)
+        return ct
+
+    def q_limbs(self, l: int) -> Tuple[int, ...]:
+        return tuple(range(l))
+
+    def sp_limbs(self) -> Tuple[int, ...]:
+        return tuple(range(self.Lq, self.Ltot))
+
+    def ext_limbs(self, l: int) -> Tuple[int, ...]:
+        return tuple(range(l)) + self.sp_limbs()
+
+    # ------------------------------------------------------------------
+    # key generation (host side, numpy/python ints; same draw order as
+    # the JAX package)
+    # ------------------------------------------------------------------
+
+    def _host_rns_eval(self, coeffs: np.ndarray, limb_ids: Sequence[int]) -> np.ndarray:
+        """signed coeffs [n] -> eval-domain standard residues uint64 [L, n]."""
+        out = np.empty((len(limb_ids), self.n), dtype=np.uint64)
+        for row, i in enumerate(limb_ids):
+            q = self.all_primes[i]
+            out[row] = host_ntt_fwd(np.mod(coeffs, q).astype(np.uint64), q,
+                                    self.plan.psis_np[i])
+        return out
+
+    def _to_mont(self, std: np.ndarray, limb_ids: Sequence[int]) -> np.ndarray:
+        """standard residues [..., L, n] -> Montgomery uint32 (host)."""
+        out = np.empty(std.shape, dtype=np.uint32)
+        for row, i in enumerate(limb_ids):
+            out[..., row, :] = mm.host_to_mont(std[..., row, :].astype(np.uint32),
+                                               self.all_primes[i])
+        return out
+
+    def _keygen(self):
+        n, rng = self.n, self._rng
+        p = self.params
+        self._s_coeffs = _sample_ternary(rng, n)
+        s_eval = self._host_rns_eval(self._s_coeffs, range(self.Ltot))
+        self._s_eval_std = s_eval  # standard form, host, for key gen
+        self.s_eval = mm.to_tensor(self._to_mont(s_eval, range(self.Ltot)), self.device)
+
+        # public key over Q basis
+        a = np.stack([rng.integers(0, q, size=n, dtype=np.uint64)
+                      for q in self.all_primes[: self.Lq]])
+        e = self._host_rns_eval(_sample_gauss(rng, n, p.sigma), range(self.Lq))
+        b = np.empty_like(a)
+        for i, q in enumerate(self.all_primes[: self.Lq]):
+            b[i] = (q - a[i] * s_eval[i] % q + e[i]) % q
+        self.pk_b = mm.to_tensor(self._to_mont(b, range(self.Lq)), self.device)
+        self.pk_a = mm.to_tensor(self._to_mont(a, range(self.Lq)), self.device)
+
+        # relinearization key: KSK for s^2
+        s2_eval = np.empty_like(s_eval)
+        for i, q in enumerate(self.all_primes):
+            s2_eval[i] = s_eval[i] * s_eval[i] % q
+        self.relin_key = mm.to_tensor(self._gen_ksk(s2_eval), self.device)
+
+    def _gen_ksk(self, sp_eval_std: np.ndarray) -> np.ndarray:
+        """Key-switching key for target secret s' (eval std [Ltot, n]):
+        ksk[j] = (b_j, a_j) with b_j = -a_j s + e_j + P*g_j*s' (mod QP).
+        Returns Montgomery uint32 [dnum, 2, Ltot, N] (host)."""
+        n, rng = self.n, self._rng
+        P = math.prod(self.params.sp_primes)
+        Qfull = math.prod(self.params.q_primes)
+        ksk = np.empty((self.dnum, 2, self.Ltot, n), dtype=np.uint64)
+        for j, grp in enumerate(self.groups):
+            Qj = math.prod(self.all_primes[i] for i in grp)
+            Qhat = Qfull // Qj
+            t = pow(Qhat % Qj, -1, Qj)
+            a = np.stack([rng.integers(0, q, size=n, dtype=np.uint64)
+                          for q in self.all_primes])
+            e = self._host_rns_eval(_sample_gauss(rng, n, self.params.sigma),
+                                    range(self.Ltot))
+            for i, q in enumerate(self.all_primes):
+                fac = (P * Qhat * t) % q  # == P mod q for i in grp; 0 for specials
+                b = (q - a[i] * self._s_eval_std[i] % q + e[i]) % q
+                ksk[j, 0, i] = (b + fac * sp_eval_std[i]) % q
+                ksk[j, 1, i] = a[i]
+        return self._to_mont(ksk, range(self.Ltot))
+
+    def rotation_galois(self, r: int) -> int:
+        """Galois element for EvalRotate(ct, r): left-rotate slots by r."""
+        return pow(5, r % self.slots, 2 * self.n)
+
+    def gen_rotation_keys(self, rotations: Sequence[int], force: bool = False):
+        """Generate keys for the given slot rotations as one stacked set.
+        With force=True, rotations already covered by other sets are
+        regenerated here so the whole list lives in a single set."""
+        new = []
+        for r in rotations:
+            g = self.rotation_galois(r)
+            if g == 1 or g in [x[0] for x in new]:
+                continue
+            if g in self.rot_keys and not force:
+                continue
+            new.append((g, r))
+        if not new:
+            return
+        set_idx = len(self._rot_sets)
+        perms = np.stack([self.plan.auto_perm(g) for g, _ in new])
+        keys = torch.empty((len(new), self.dnum, 2, self.Ltot, self.n),
+                           dtype=torch.int32, device=self.device)
+        for row, (g, _r) in enumerate(new):
+            s_rot = self._s_eval_std[:, perms[row]]
+            keys[row] = mm.to_tensor(self._gen_ksk(s_rot), self.device)
+            self.rot_keys.setdefault(g, {})[set_idx] = row
+        self._rot_sets.append((torch.from_numpy(perms).to(self.device), keys))
+
+    def gen_power_of_two_rotation_keys(self):
+        """Keys for +-2^k, ordered [1, 2, 4, ...] first so eval_sum can use
+        a prefix of the stacked set."""
+        rots = []
+        i = 1
+        while i < self.slots:
+            rots.append(i)
+            i *= 2
+        i = 1
+        while i < self.slots:
+            rots.append(-i)
+            i *= 2
+        self._pow2_set_idx = len(self._rot_sets)
+        self._pow2_rots = rots
+        self.gen_rotation_keys(rots)
+
+    def _rot_entry(self, g: int):
+        """(perm, key) of the FIRST set holding galois element g."""
+        set_idx, row = next(iter(self.rot_keys[g].items()))
+        perms, keys = self._rot_sets[set_idx]
+        return perms[row], keys[row]
+
+    # ------------------------------------------------------------------
+    # encoding / encryption (host <-> device boundary)
+    # ------------------------------------------------------------------
+
+    def encode(self, values: np.ndarray, limbs: int, scale: float) -> Plaintext:
+        """Encode slot values into an eval-domain Montgomery plaintext at
+        the given limb count and exact scale (host numpy NTT)."""
+        coeffs = encoding.encode(np.asarray(values), self.n, scale)[0]
+        rows = []
+        for i in range(limbs):
+            q = self.all_primes[i]
+            ev = host_ntt_fwd(np.mod(coeffs, q).astype(np.uint64), q, self.plan.psis_np[i])
+            rows.append(mm.host_to_mont(ev.astype(np.uint32), q))
+        return Plaintext(mm.to_tensor(np.stack(rows), self.device), scale)
+
+    def encode_cached(self, key, values, limbs: int, scale: float) -> Plaintext:
+        ck = (key, limbs, round(math.log2(scale) * 1e6))
+        if ck not in self._pt_cache:
+            self._pt_cache[ck] = self.encode(values, limbs, scale)
+        return self._pt_cache[ck]
+
+    def _fresh_noise(self, seed: int, batch: int):
+        """(v, e0, e1) int64 [batch, n] on the device: ternary v and rounded
+        gaussians, from ``self.noise`` or a torch.Generator seeded by seed."""
+        if self.noise is not None:
+            return tuple(torch.as_tensor(np.array(x), dtype=torch.int64).to(self.device)
+                         for x in self.noise(seed, batch, self.n))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        shape = (batch, self.n)
+        v = torch.randint(-1, 2, shape, generator=gen, device=self.device)
+        e = [torch.round(torch.randn(shape, generator=gen, device=self.device,
+                                     dtype=torch.float32) * self.params.sigma).long()
+             for _ in range(2)]
+        return v, e[0], e[1]
+
+    def encrypt_batch(self, values: np.ndarray, limbs: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+        """Encrypt a batch of slot-value vectors [B, slots] -> ciphertext
+        data [B, 2, l, N].  Only the encoded message crosses from the
+        host; the noise is drawn on the device and all NTTs and public-key
+        products run there."""
+        values = np.atleast_2d(np.asarray(values, dtype=np.float64))
+        B = values.shape[0]
+        l = limbs if limbs is not None else self.Lq
+        sc = scale if scale is not None else self.fresh_scale
+        primes = [self.all_primes[i] for i in range(l)]
+        coeffs = encoding.encode(values, self.n, sc)  # [B, n]
+        m_rns = mm.to_tensor(encoding.to_rns(coeffs, primes), self.device)  # [B, l, n] std
+        seed = int(self._rng.integers(0, 2 ** 63))
+        v, e0, e1 = self._fresh_noise(seed, B)
+        return self._encrypt_impl(m_rns, v, e0, e1, l)
+
+    def _encrypt_impl(self, m_rns, v, e0, e1, l):
+        lim = self.q_limbs(l)
+        q, rinv = self._qrow(lim)
+        r2 = self.r2_64[:l, None]
+        small = torch.stack([v, e0, e1]).long()[:, :, None, :]  # [3, B, 1, n]
+        small = torch.where(small < 0, q + small, small)         # [3, B, l, n]
+        std = torch.cat([m_rns[None].long(), small])              # [4, B, l, n]
+        m, vv, ee0, ee1 = self.plan.fwd(mm.mont_mul(std, r2, q, rinv), lim)
+        c0 = mm.mod_add(mm.mod_add(mm.mont_mul(self.pk_b[:l], vv, q, rinv), ee0, q), m, q)
+        c1 = mm.mod_add(mm.mont_mul(self.pk_a[:l], vv, q, rinv), ee1, q)
+        return torch.stack([c0, c1], dim=-3)
+
+    def encrypt(self, values: np.ndarray, limbs: Optional[int] = None,
+                scale: Optional[float] = None) -> Ciphertext:
+        data = self.encrypt_batch(values, limbs, scale)[0]
+        return Ciphertext(data, scale if scale is not None else self.fresh_scale)
+
+    def _decrypt_impl(self, data: torch.Tensor) -> torch.Tensor:
+        """[k, l, N] -> standard-form coefficient residues [l, N]."""
+        k, l = data.shape[-3], data.shape[-2]
+        lim = self.q_limbs(l)
+        q, rinv = self._qrow(lim)
+        s = self.s_eval[:l]
+        m = data[..., 0, :, :]
+        spow = s
+        for i in range(1, k):
+            m = mm.mod_add(m, mm.mont_mul(data[..., i, :, :], spow, q, rinv), q)
+            if i + 1 < k:
+                spow = mm.mont_mul(spow, s, q, rinv)
+        coeff_mont = self.plan.inv(m, lim)
+        return mm.mont_mul(coeff_mont, torch.ones_like(q), q, rinv)  # REDC
+
+    def decrypt_coeffs(self, ct: Ciphertext) -> np.ndarray:
+        """-> centered float64 coefficient vector [n]."""
+        std = mm.to_numpy(self._decrypt_impl(ct.data))
+        primes = [self.all_primes[i] for i in range(ct.limbs)]
+        return encoding.from_rns_centered(std[None, ...], primes)[0]
+
+    def decrypt(self, ct: Ciphertext, num_slots: Optional[int] = None) -> np.ndarray:
+        return encoding.decode(self.decrypt_coeffs(ct), self.n, ct.scale, num_slots)
+
+    # ------------------------------------------------------------------
+    # basic homomorphic ops
+    # ------------------------------------------------------------------
+
+    def _check_scales(self, a: float, b: float):
+        if abs(math.log2(a) - math.log2(b)) > 1e-6:
+            raise ValueError(f"scale mismatch: {a} vs {b}; use align_to")
+
+    def add(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        l = min(x.limbs, y.limbs)
+        x, y = self.drop_to(x, l), self.drop_to(y, l)
+        self._check_scales(x.scale, y.scale)
+        q, _ = self._qrow(self.q_limbs(l))
+        kx, ky = x.ncomp, y.ncomp
+        if kx == ky:
+            return Ciphertext(mm.mod_add(x.data, y.data, q), x.scale)
+        big, small = (x, y) if kx > ky else (y, x)
+        head = mm.mod_add(big.data[: small.ncomp], small.data, q)
+        return Ciphertext(torch.cat([head, big.data[small.ncomp:]], dim=0), x.scale)
+
+    def sub(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        return self.add(x, self.neg(y))
+
+    def neg(self, x: Ciphertext) -> Ciphertext:
+        q, _ = self._qrow(self.q_limbs(x.limbs))
+        return Ciphertext(mm.mod_neg(x.data, q), x.scale)
+
+    def add_scalar(self, x: Ciphertext, c: float) -> Ciphertext:
+        """Add constant c to every slot: constant polynomial, exact at the
+        ciphertext's scale."""
+        lim = self.q_limbs(x.limbs)
+        consts = self._mont_const(int(round(c * x.scale)), lim)
+        q, _ = self._qrow(lim)
+        c0 = mm.mod_add(x.data[0], consts, q)
+        return Ciphertext(torch.cat([c0[None], x.data[1:]], dim=0), x.scale)
+
+    def mul_plain(self, x: Ciphertext, pt: Plaintext) -> Ciphertext:
+        if pt.data.shape[-2] < x.limbs:
+            x = self.drop_to(x, pt.data.shape[-2])
+        l = x.limbs
+        q, rinv = self._qrow(self.q_limbs(l))
+        return Ciphertext(mm.mont_mul(x.data, pt.data[None, :l], q, rinv),
+                          x.scale * pt.scale)
+
+    def mul_scalar(self, x: Ciphertext, c: float, pt_scale: float) -> Ciphertext:
+        """Multiply every slot by real constant c encoded at pt_scale (a
+        constant polynomial — no encoding FFT needed)."""
+        lim = self.q_limbs(x.limbs)
+        consts = self._mont_const(int(round(c * pt_scale)), lim)
+        q, rinv = self._qrow(lim)
+        return Ciphertext(mm.mont_mul(x.data, consts[None], q, rinv),
+                          x.scale * pt_scale)
+
+    def mul(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        """Tensor product without relinearization (EvalMultNoRelin)."""
+        assert x.ncomp == 2 and y.ncomp == 2, "relinearize first"
+        l = min(x.limbs, y.limbs)
+        x, y = self.drop_to(x, l), self.drop_to(y, l)
+        q, rinv = self._qrow(self.q_limbs(l))
+        x0, x1 = x.data[0], x.data[1]
+        y0, y1 = y.data[0], y.data[1]
+        c0 = mm.mont_mul(x0, y0, q, rinv)
+        c1 = mm.mod_add(mm.mont_mul(x0, y1, q, rinv), mm.mont_mul(x1, y0, q, rinv), q)
+        c2 = mm.mont_mul(x1, y1, q, rinv)
+        return Ciphertext(torch.stack([c0, c1, c2]), x.scale * y.scale)
+
+    def square(self, x: Ciphertext) -> Ciphertext:
+        assert x.ncomp == 2
+        q, rinv = self._qrow(self.q_limbs(x.limbs))
+        x0, x1 = x.data[0], x.data[1]
+        m = mm.mont_mul(x0, x1, q, rinv)
+        return Ciphertext(torch.stack([mm.mont_mul(x0, x0, q, rinv), mm.mod_add(m, m, q),
+                                       mm.mont_mul(x1, x1, q, rinv)]),
+                          x.scale * x.scale)
+
+    def drop_to(self, x: Ciphertext, l: int) -> Ciphertext:
+        """Free modulus reduction: drop top limbs (scale unchanged)."""
+        if x.limbs == l:
+            return x
+        assert x.limbs > l
+        return Ciphertext(x.data[:, :l, :], x.scale)
+
+    def rescale(self, x: Ciphertext) -> Ciphertext:
+        """Divide by the top prime (FIXEDMANUAL RescaleInPlace)."""
+        l = x.limbs
+        assert l >= 2, "cannot rescale below guard level"
+        qt = int(self.all_primes[l - 1])
+        lim_rest = self.q_limbs(l - 1)
+        q, rinv = self._qrow(lim_rest)
+        r2 = self.r2_64[: l - 1, None]
+        # top limb -> standard-form coefficients < qt
+        top_c = self.plan.inv(x.data[:, l - 1 : l, :], (l - 1,))
+        top_std = top_c.long() * mm.host_rinv(qt) % qt  # [k, 1, N]
+        # centered transfer mod each remaining prime
+        pos = mm.reduce_small(top_std, q)
+        negv = mm.mod_neg(mm.reduce_small(qt - top_std, q), q)
+        t_std = torch.where(top_std <= qt // 2, pos, negv)
+        t_eval = self.plan.fwd(mm.mont_mul(t_std, r2, q, rinv), lim_rest)
+        diff = mm.mod_sub(x.data[:, : l - 1, :], t_eval, q)
+        qtinv = self._limb_consts(("qtinv", qt), lim_rest,
+                                  lambda p: pow(qt, -1, p) * (R % p) % p)
+        return Ciphertext(mm.mont_mul(diff, qtinv, q, rinv), x.scale / qt)
+
+    # ------------------------------------------------------------------
+    # key switching
+    # ------------------------------------------------------------------
+
+    def _fbc_consts(self, src: Tuple[int, ...], dst: Tuple[int, ...]) -> FbcConsts:
+        """Fast-base-conversion constants from source primes to target
+        primes (limb indices into all_primes)."""
+        key = (src, dst)
+        if key in self._fbc_cache:
+            return self._fbc_cache[key]
+        src_p = [self.all_primes[i] for i in src]
+        dst_p = [self.all_primes[i] for i in dst]
+        QG = math.prod(src_p)
+        t_std = np.array([pow((QG // q) % q, -1, q) for q in src_p], dtype=np.uint32)[:, None]
+        qhat = np.array([[(QG // sq) * R * R % dq for dq in dst_p] for sq in src_p],
+                        dtype=np.uint32)
+        qg_r2 = np.array([QG * R * R % dq for dq in dst_p], dtype=np.uint32)[:, None]
+        inv_q = np.array([1.0 / q for q in src_p], dtype=np.float32)[:, None]
+        dev = self.device
+        packed = np.concatenate([
+            self.q_np[list(src)], self.qneg_np[list(src)], t_std[:, 0],
+            inv_q[:, 0].view(np.uint32), self.q_np[list(dst)], self.qneg_np[list(dst)],
+            qg_r2[:, 0], qhat.ravel()])
+        qs, rinv_s = self._qrow(src)
+        qd, rinv_d = self._qrow(dst)
+        c = FbcConsts(
+            qs=qs, rinv_s=rinv_s, qd=qd, rinv_d=rinv_d,
+            t_std=torch.tensor(t_std.astype(np.int64), device=dev),
+            qhat=torch.tensor(qhat.astype(np.int64), device=dev),
+            qg_r2=torch.tensor(qg_r2.astype(np.int64), device=dev),
+            inv_q=torch.tensor(inv_q[:, 0], device=dev),
+            packed=mm.to_tensor(packed, dev))
+        self._fbc_cache[key] = c
+        return c
+
+    def _fbc(self, x: torch.Tensor, src: Tuple[int, ...], dst: Tuple[int, ...]) -> torch.Tensor:
+        """Fast base conversion of coefficient-domain Montgomery residues
+        [..., g, N] (basis src) -> [..., t, N] (basis dst), approximate
+        (+-1 multiple of Q_src, standard for hybrid key switching).
+        Kernel K3 for a CUDA tensor, ``fbc_plain`` for a CPU tensor."""
+        c = self._fbc_consts(tuple(src), tuple(dst))
+        if not x.is_cuda:
+            return fbc_plain(x, c)
+        x = x.contiguous()
+        g, t, n = len(src), len(dst), self.n
+        if x.shape[-2] != g or x.shape[-1] != n:
+            raise ValueError(f"fbc: data {tuple(x.shape)} does not match {g} limbs")
+        batch = x.numel() // (g * n)
+        if batch > 65535:
+            raise ValueError("fbc: batch exceeds the kernel's grid (65535)")
+        out = torch.empty((*x.shape[:-2], t, n), dtype=torch.int32, device=x.device)
+        kernels.check_cuda("fbc", x, c.packed)
+        kernels.launch("imtpu_fbc", "fbc", kernels.ptr(out), kernels.ptr(x),
+                       kernels.ptr(c.packed), batch, g, t, n)
+        return out
+
+    def _decompose_extended(self, poly_eval: torch.Tensor, l: int) -> torch.Tensor:
+        """Hoisting precompute: digit-decompose eval-domain polys
+        [..., l, N] and extend every digit to the full current basis
+        Q_l + P.  Returns [..., ndig, l + S, N] eval Montgomery."""
+        coeff = self.plan.inv(poly_eval, self.q_limbs(l))
+        ext = self.ext_limbs(l)
+        digs = []
+        for grp in self.groups:
+            g = [i for i in grp if i < l]
+            if not g:
+                continue
+            a, b = g[0], g[-1] + 1
+            x = coeff[..., a:b, :]
+            other = tuple(i for i in ext if i not in g)
+            conv = self._fbc(x, tuple(g), other)
+            # ext order: conv rows below the digit, the digit's own rows
+            # copied exactly, then the remaining conv rows
+            digs.append(torch.cat([conv[..., :a, :], x, conv[..., a:, :]], dim=-2))
+        return self.plan.fwd(torch.stack(digs, dim=-3), ext)
+
+    def _moddown(self, comp: torch.Tensor, l: int) -> torch.Tensor:
+        """[..., l + S, N] eval over Q_l + P -> [..., l, N] eval over Q_l,
+        dividing by P (with centered correction)."""
+        sp = self.sp_limbs()
+        lim = self.q_limbs(l)
+        P = math.prod(self.params.sp_primes)
+        cp = self.plan.inv(comp[..., l:, :], sp)
+        # centered FBC: shift by +P/2 before conversion, subtract after
+        qsp, _ = self._qrow(sp)
+        cp_shift = mm.mod_add(cp, self._mont_const(P // 2, sp), qsp)
+        conv = self._fbc(cp_shift, sp, lim)
+        qd, rinvd = self._qrow(lim)
+        conv = mm.mod_sub(conv, self._mont_const(P // 2, lim), qd)
+        diff = mm.mod_sub(comp[..., :l, :], self.plan.fwd(conv, lim), qd)
+        pinv = self._limb_consts("pinv", lim, lambda p: pow(P % p, -1, p) * (R % p) % p)
+        return mm.mont_mul(diff, pinv, qd, rinvd)
+
+    def _ks_mac(self, digs: torch.Tensor, ksk: torch.Tensor, l: int,
+                perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Key multiply-accumulate over the extended basis, for R
+        rotations/relinearizations at once -> [R, 2, l + S, N].
+
+        digs: [ndig, E, N] shared by all R, or [R, ndig, E, N];
+        ksk: [dnum, 2, Ltot, N] shared, or [R, dnum, 2, Ltot, N];
+        perms: int32 [R, N] automorphisms applied to the digits, or None.
+        Kernel K4 for CUDA tensors, ``ks_mac_plain`` for CPU tensors."""
+        E = l + self.S
+        if not digs.is_cuda:
+            q, rinv = self._qrow(self.ext_limbs(l))
+            return ks_mac_plain(digs, ksk, l, self.Lq, q, rinv, perms)
+        digs = digs.contiguous()
+        ksk = ksk.contiguous()
+        n = self.n
+        ndig = digs.shape[-3]
+        d_shared = digs.dim() == 3
+        k_shared = ksk.dim() == 4
+        sizes = {t.shape[0] for t, shared in ((digs, d_shared), (ksk, k_shared))
+                 if not shared}
+        if perms is not None:
+            sizes.add(perms.shape[0])
+        if len(sizes) > 1 or digs.shape[-2] != E or ksk.shape[-2] != self.Ltot:
+            raise ValueError(f"ks_mac: inconsistent shapes {tuple(digs.shape)}, "
+                             f"{tuple(ksk.shape)}")
+        Rn = sizes.pop() if sizes else 1
+        if ndig > ksk.shape[-4]:
+            raise ValueError("ks_mac: more digits than key rows")
+        out = torch.empty((Rn, 2, E, n), dtype=torch.int32, device=digs.device)
+        tensors = [digs, ksk, self.q32, self.qneg32] + ([perms] if perms is not None else [])
+        kernels.check_cuda("ks_mac", *tensors)
+        kernels.launch(
+            "imtpu_ks_mac", "ks_mac", kernels.ptr(out), kernels.ptr(digs),
+            0 if d_shared else ndig * E * n, kernels.ptr(perms), kernels.ptr(ksk),
+            0 if k_shared else ksk[0].numel(), Rn, ndig, E, l, self.Lq, self.Ltot, n,
+            kernels.ptr(self.q32), kernels.ptr(self.qneg32))
+        return out
+
+    def _keyswitch_batch(self, digs, ksk, l: int, perms=None) -> torch.Tensor:
+        """MAC then mod-down of both components -> [R, 2, l, N]."""
+        return self._moddown(self._ks_mac(digs, ksk, l, perms), l)
+
+    def _keyswitch_digits(self, digs: torch.Tensor, ksk: torch.Tensor, l: int):
+        """digs [ndig, l+S, N] x ksk -> (d0, d1) each [l, N] over Q_l."""
+        d = self._keyswitch_batch(digs, ksk, l)[0]
+        return d[0], d[1]
+
+    def keyswitch(self, poly_eval: torch.Tensor, ksk: torch.Tensor) -> Tuple:
+        l = poly_eval.shape[-2]
+        return self._keyswitch_digits(self._decompose_extended(poly_eval, l), ksk, l)
+
+    def relinearize(self, x: Ciphertext) -> Ciphertext:
+        if x.ncomp == 2:
+            return x
+        assert x.ncomp == 3
+        l = x.limbs
+        d0, d1 = self.keyswitch(x.data[2], self.relin_key)
+        q, _ = self._qrow(self.q_limbs(l))
+        return Ciphertext(torch.stack([mm.mod_add(x.data[0], d0, q),
+                                       mm.mod_add(x.data[1], d1, q)]), x.scale)
+
+    def relinearize_stack(self, data: torch.Tensor) -> torch.Tensor:
+        """Relinearize a stack of 3-component ciphertexts [R, 3, l, N] ->
+        [R, 2, l, N] with one batched keyswitch."""
+        l = data.shape[-2]
+        d = self._keyswitch_batch(self._decompose_extended(data[:, 2], l),
+                                  self.relin_key, l)
+        q, _ = self._qrow(self.q_limbs(l))
+        return mm.mod_add(data[:, :2], d, q)
+
+    def mul_relin(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
+        return self.relinearize(self.mul(x, y))
+
+    # ------------------------------------------------------------------
+    # rotations
+    # ------------------------------------------------------------------
+
+    def _perm_tensor(self, g: int) -> torch.Tensor:
+        if g not in self._perm_cache:
+            self._perm_cache[g] = torch.from_numpy(
+                self.plan.auto_perm(g).astype(np.int64)).to(self.device)
+        return self._perm_cache[g]
+
+    def _permute(self, data: torch.Tensor, g: int) -> torch.Tensor:
+        return data.index_select(-1, self._perm_tensor(g))
+
+    def rotate(self, x: Ciphertext, r: int) -> Ciphertext:
+        """EvalRotate: left-rotate slots by r (requires key for this r)."""
+        if r % self.slots == 0:
+            return x
+        g = self.rotation_galois(r)
+        if g not in self.rot_keys:
+            raise KeyError(f"no rotation key for r={r} (g={g})")
+        assert x.ncomp == 2
+        _, key = self._rot_entry(g)
+        c0 = self._permute(x.data[0], g)
+        d0, d1 = self.keyswitch(self._permute(x.data[1], g), key)
+        q, _ = self._qrow(self.q_limbs(x.limbs))
+        return Ciphertext(torch.stack([mm.mod_add(c0, d0, q), d1]), x.scale)
+
+    def hoisted_precompute(self, x: Ciphertext) -> torch.Tensor:
+        """EvalFastRotationPrecompute: digit-decompose+extend c1 once."""
+        return self._decompose_extended(x.data[1], x.limbs)
+
+    def hoisted_rotate(self, x: Ciphertext, digs: torch.Tensor, r: int) -> Ciphertext:
+        """EvalFastRotation using precomputed digits."""
+        if r % self.slots == 0:
+            return x
+        g = self.rotation_galois(r)
+        perm, key = self._rot_entry(g)
+        return Ciphertext(self._hoisted(x, digs, perm[None], key[None])[0], x.scale)
+
+    def _hoisted(self, x: Ciphertext, digs, perms, keys) -> torch.Tensor:
+        """Hoisted rotations of x by R automorphisms -> [R, 2, l, N]; the
+        digit permutation runs inside the MAC kernel."""
+        l = x.limbs
+        d = self._keyswitch_batch(digs, keys, l, perms)
+        q, _ = self._qrow(self.q_limbs(l))
+        c0 = x.data[0][:, perms.long()].transpose(0, 1)  # [R, l, N]
+        return torch.stack([mm.mod_add(c0, d[:, 0], q), d[:, 1]], dim=1)
+
+    def _rot_rows(self, rots: Sequence[int]):
+        """Stacked (perms [R, N], keys [R, ...]) for the given rotations,
+        from the LOWEST set holding all of them (a zero-copy prefix view
+        when they are a prefix of that set)."""
+        locs = [self.rot_keys[self.rotation_galois(r)] for r in rots]
+        common = set(locs[0])
+        for d in locs[1:]:
+            common &= set(d)
+        assert common, "rotations must share one key set"
+        sid = min(common)
+        rows = [d[sid] for d in locs]
+        perms, keys = self._rot_sets[sid]
+        if rows == list(range(len(rows))):
+            return perms[: len(rows)], keys[: len(rows)]
+        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        return perms[idx], keys[idx]
+
+    def hoisted_rotate_stack(self, x: Ciphertext, digs: torch.Tensor,
+                             rots: Sequence[int]) -> torch.Tensor:
+        """Batch of hoisted rotations as one batched keyswitch:
+        -> data [len(rots), 2, l, N]."""
+        perms, keys = self._rot_rows(rots)
+        return self._hoisted(x, digs, perms, keys)
+
+    def rotate_stack(self, data: torch.Tensor, rots: Sequence[int],
+                     scale: float) -> torch.Tensor:
+        """Rotate a stack of ciphertexts [R, 2, l, N] by per-row rotation
+        amounts, as one batched keyswitch."""
+        Rn, _, l, n = data.shape
+        perms, keys = self._rot_rows(rots)
+        idx = perms.long()[:, None, :].expand(Rn, l, n)
+        c0 = torch.gather(data[:, 0], -1, idx)
+        c1 = torch.gather(data[:, 1], -1, idx)
+        d = self._keyswitch_batch(self._decompose_extended(c1, l), keys, l)
+        q, _ = self._qrow(self.q_limbs(l))
+        return torch.stack([mm.mod_add(c0, d[:, 0], q), d[:, 1]], dim=1)
+
+    def eval_sum(self, x: Ciphertext, m: int) -> Ciphertext:
+        """Every slot j becomes sum of slots j..j+m-1 (cyclic): log2(m)
+        rotate-and-add steps over the power-of-two key-set prefix."""
+        if m <= 1:
+            return x
+        steps = int(math.log2(m))
+        perms, keys = self._rot_rows([1 << k for k in range(steps)])
+        l = x.limbs
+        q, _ = self._qrow(self.q_limbs(l))
+        carry = x.data
+        for k in range(steps):
+            idx = perms[k].long()
+            c0 = carry[0].index_select(-1, idx)
+            d0, d1 = self.keyswitch(carry[1].index_select(-1, idx), keys[k])
+            carry = mm.mod_add(carry, torch.stack([mm.mod_add(c0, d0, q), d1]), q)
+        return Ciphertext(carry, x.scale)
+
+    # ------------------------------------------------------------------
+    # scale alignment
+    # ------------------------------------------------------------------
+
+    def align_to(self, x: Ciphertext, limbs: int, scale: float) -> Ciphertext:
+        """Bring x to exactly (limbs, scale) using free limb drops and, if
+        the scale differs, one spare level (multiply by 1.0 at the
+        correcting scale, then rescale)."""
+        if x.limbs == limbs and abs(math.log2(x.scale / scale)) < 1e-9:
+            return x
+        if abs(math.log2(x.scale / scale)) < 1e-9:
+            return self.drop_to(x, limbs)
+        assert x.limbs > limbs, "no spare level for scale alignment"
+        x = self.drop_to(x, limbs + 1)
+        qt = int(self.all_primes[limbs])
+        y = self.rescale(self.mul_scalar(x, 1.0, scale * qt / x.scale))
+        # exact by construction up to float rounding of sigma
+        return Ciphertext(y.data, scale)

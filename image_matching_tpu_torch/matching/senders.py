@@ -1,0 +1,178 @@
+"""Senders: server-side homomorphic similarity + compare pipeline for
+HyDia, approach 5 (port of image_matching_tpu/matching/senders.py).
+
+``ct_dot``, the diagonal contraction, launches kernel K2
+(``csrc/ct_dot.cu``) for CUDA tensors and runs ``ct_dot_plain`` for CPU
+tensors.  The JAX module's jit runners and segments have no counterpart
+(PyTorch runs eagerly), and its ``vmap``/``lax.map`` over score
+ciphertexts and DB groups become Python loops or a leading batch axis.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from image_matching_tpu.matching.config import MatchConfig
+
+from ..ckks import poly_eval
+from ..ckks.context import CkksContext, Ciphertext
+from ..ops import kernels
+from ..ops import modmath as mm
+from .enrollers import DiagDB
+
+
+def ct_dot_plain(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ct_dot`` (same shapes and values)."""
+    l = min(A.shape[-2], B.shape[-2])
+    A = A[..., :l, :]
+    B = B[..., :l, :]
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
+    kdim = B.dim() - 4  # the contraction axis (1 when B has a block axis)
+    A = A.reshape((1,) * kdim + tuple(A.shape))
+    a0, a1 = A.select(kdim + 1, 0), A.select(kdim + 1, 1)
+    b0, b1 = B.select(kdim + 1, 0), B.select(kdim + 1, 1)
+    c0 = mm.mont_dot(a0, b0, kdim, q, rinv)
+    c2 = mm.mont_dot(a1, b1, kdim, q, rinv)
+    c1 = mm.mont_dot(torch.cat([a0, a1], dim=kdim), torch.cat([b1, b0], dim=kdim),
+                     kdim, q, rinv)
+    return torch.stack([c0, c1, c2], dim=-3)
+
+
+def ct_dot(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Sum_k A_k (x) B_k for stacks of 2-component ciphertexts
+    A [K, 2, la, N] and B [K, 2, lb, N] -> unrelinearized 3-component data
+    [3, l, N], l = min(la, lb) (the higher operand's top limbs are dropped:
+    free modulus reduction).  B may carry a leading block axis,
+    [nb, K, 2, lb, N] -> [nb, 3, l, N], each block contracted with A.
+
+    The hot kernel of every similarity computation: kernel K2 for CUDA
+    tensors, ``ct_dot_plain`` for CPU tensors."""
+    if not A.is_cuda:
+        return ct_dot_plain(ctx, A, B)
+    blocked = B.dim() == 5
+    Bb = B if blocked else B[None]
+    A = A.contiguous()
+    Bb = Bb.contiguous()
+    K, _, LA, n = A.shape
+    nb, KB, _, LB, _ = Bb.shape
+    if KB != K or A.shape[1] != 2 or Bb.shape[2] != 2 or n != ctx.n:
+        raise ValueError(f"ct_dot: shapes {tuple(A.shape)} and {tuple(B.shape)}")
+    l = min(LA, LB)
+    out = torch.empty((nb, 3, l, n), dtype=torch.int32, device=A.device)
+    kernels.check_cuda("ct_dot", A, Bb, ctx.q32, ctx.qneg32)
+    kernels.launch("imtpu_ct_dot", "ct_dot", kernels.ptr(out), kernels.ptr(A),
+                   kernels.ptr(Bb), K, nb, l, n, LA, LB, kernels.ptr(ctx.q32),
+                   kernels.ptr(ctx.qneg32))
+    return out if blocked else out[0]
+
+
+class Sender:
+    """Abstract sender (reference include/sender.h)."""
+
+    def __init__(self, ctx: CkksContext, cfg: MatchConfig, num_vectors: int):
+        self.ctx = ctx
+        self.cfg = cfg
+        self.num_vectors = num_vectors
+
+    def _compare_many(self, scores: List[Ciphertext]) -> List[Ciphertext]:
+        """chebyshevCompare over each score ciphertext."""
+        thr, depth = self.cfg.match_threshold, self.cfg.comp_depth
+        return [poly_eval.chebyshev_compare(self.ctx, s, thr, depth) for s in scores]
+
+    def _membership_reduce(self, flags: List[Ciphertext]) -> Ciphertext:
+        """EvalAddManyInPlace + EvalSum(batch)."""
+        ctx = self.ctx
+        acc = flags[0]
+        for f in flags[1:]:
+            acc = ctx.add(acc, f)
+        return ctx.eval_sum(acc, ctx.slots)
+
+    def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        raise NotImplementedError
+
+    def membership_scenario(self, query: List[Ciphertext]) -> Ciphertext:
+        return self._membership_reduce(self._compare_many(self.compute_similarity(query)))
+
+    def index_scenario(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        return self._compare_many(self.compute_similarity(query))
+
+    def required_rotations(self) -> List[int]:
+        """Rotation indices whose keys must exist (power-of-two keys are
+        always generated separately)."""
+        return []
+
+    def run_membership(self, query_cts: List[Ciphertext]) -> Ciphertext:
+        return self.membership_scenario(query_cts)
+
+    def run_index(self, query_cts: List[Ciphertext]) -> List[Ciphertext]:
+        return self.index_scenario(query_cts)
+
+
+class DiagonalSender(Sender):
+    """Approach 5, HyDia: diagonal matrix-vector products with hoisted
+    rotations; BSGS variant by default (diagonals pre-rotated at
+    enrollment: n1-1 hoisted baby rotations of the query plus n2-1 giant
+    rotations per group), else the reference's dim-1 hoisted rotations."""
+
+    def __init__(self, ctx, cfg, db: DiagDB):
+        super().__init__(ctx, cfg, db.num_vectors)
+        self.db = db
+
+    def required_rotations(self) -> List[int]:
+        dim = self.cfg.vector_dim
+        if self.db.bsgs:
+            n1 = self.db.n1
+            n2 = dim // n1
+            return list(range(1, n1)) + [n1 * j for j in range(1, n2)]
+        return list(range(1, dim))
+
+    def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        ctx, dim = self.ctx, self.cfg.vector_dim
+        qct = query[0]
+        n1 = self.db.n1 if self.db.bsgs else dim
+        n2 = dim // n1
+        prod_scale = qct.scale * self.db.scale
+        q, _ = ctx._qrow(ctx.q_limbs(qct.limbs))
+        # all baby rotations of the query: one batched hoisted keyswitch
+        if n1 > 1:
+            digs = ctx.hoisted_precompute(qct)
+            rot = ctx.hoisted_rotate_stack(qct, digs, list(range(1, n1)))
+            Q = torch.cat([qct.data[None], rot], dim=0)
+        else:
+            Q = qct.data[None]
+        scores = []
+        for dbd in self.db.data:  # [dim, 2, l, N] per group
+            if n2 == 1:
+                t3 = ct_dot(ctx, Q, dbd)
+                out = ctx.rescale_score(ctx.relinearize(Ciphertext(t3, prod_scale)))
+            else:
+                # all inner sums: one blocked contraction + batched relin
+                t3 = ct_dot(ctx, Q, dbd.reshape(n2, n1, *dbd.shape[1:]))
+                inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
+                # giant rotations: one batched keyswitch over stacked rows
+                rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)],
+                                       prod_scale)
+                summed = inners[0]
+                for r in rot:
+                    summed = mm.mod_add(summed, r, q)
+                out = ctx.rescale_score(Ciphertext(summed, prod_scale))
+            scores.append(out)
+        return scores
+
+
+NOT_PORTED = {
+    1: "approach 1 (Baseline) is not ported yet: ROADMAP A9",
+    2: "approach 2 (GROTE) is not ported yet: ROADMAP A9",
+    3: "approach 3 (Blind-Match) is not ported yet: ROADMAP A9",
+    4: "approach 4 (HERS) is not ported yet: ROADMAP A8",
+}
+
+
+def make_sender(approach: int, ctx: CkksContext, cfg: MatchConfig, db) -> Sender:
+    if approach in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[approach])
+    if approach != 5:
+        raise ValueError(f"approach must be 1..5, got {approach}")
+    return DiagonalSender(ctx, cfg, db)

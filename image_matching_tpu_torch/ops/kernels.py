@@ -1,0 +1,150 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+The sources in ``image_matching_tpu_torch/csrc/*.cu`` are compiled on first
+use by ``nvcc`` for ``sm_90a`` (Hopper) into one shared library with a
+plain C interface, which is loaded with ``ctypes``.  The library is cached
+under ``build/imtpu_torch/`` at the root of the checkout, named by a hash
+of the sources and flags, so an edited source is rebuilt.
+
+Every C entry point takes device pointers and the CUDA stream as
+``void*``, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code.  A
+build or launch failure raises: there is no fallback.  Each kernel has a
+launch counter, incremented only where the kernel is launched, so a run
+can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "imtpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C entry point -> its arguments before the trailing stream: "p" a device
+# pointer (c_void_p), "i" an int64_t.
+_ENTRIES = {
+    "imtpu_ntt": "pppiiipppppi",
+    "imtpu_ct_dot": "pppiiiiiipp",
+    "imtpu_fbc": "pppiiii",
+    "imtpu_ks_mac": "ppippiiiiiiiipp",
+}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
+
+# launch counters: one per kernel, the NTT counted per direction
+KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac")
+_counts = {k: 0 for k in KERNELS}
+
+_lib = None
+build_seconds = None  # wall time of the build in this process, if one ran
+build_log = ""
+
+
+def counts() -> dict:
+    return dict(_counts)
+
+
+def reset_counts():
+    for k in _counts:
+        _counts[k] = 0
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def build() -> Path:
+    """Compile the kernels if the cached library is missing or stale;
+    return its path."""
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libimtpu_{source_hash()}.so"
+    if out.exists():
+        return out
+    t0 = time.perf_counter()
+    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, sig in _ENTRIES.items():
+            fn = getattr(handle, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_CTYPE[c] for c in sig] + [ctypes.c_void_p]
+        handle.imtpu_error_string.restype = ctypes.c_char_p
+        handle.imtpu_error_string.argtypes = [ctypes.c_int]
+        _lib = handle
+    return _lib
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or 0 for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def check_cuda(name: str, *tensors):
+    """Raise unless every tensor is a contiguous int32 CUDA tensor on one
+    device (the kernels read int32 storage as uint32 residues)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: expected int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def launch(entry: str, counter: str, *args):
+    """Call a C entry point on the current stream; raise on a CUDA error."""
+    L = lib()
+    sig = _ENTRIES[entry]
+    if len(args) != len(sig):
+        raise TypeError(f"{entry} takes {len(sig)} arguments, got {len(args)}")
+    rc = getattr(L, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = L.imtpu_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
+    _counts[counter] += 1

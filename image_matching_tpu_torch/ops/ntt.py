@@ -1,0 +1,271 @@
+"""Negacyclic number-theoretic transform over RNS limbs (port of
+image_matching_tpu/ops/ntt.py).
+
+Same tables and the same output order as the JAX plan: the 2N-th root psi
+is merged into the twiddles (psi^brv(i) tables), forward maps
+natural-order coefficients to the bit-reversed evaluation order, inverse
+undoes it including the 1/N factor.  Data is int32 ``[..., L, N]`` in
+Montgomery form, one limb per row; ``limbs`` names the table row of each
+of the L rows.  Because every output is a canonical residue, any correct
+wiring over these tables is bit-identical to the JAX plan, and
+``auto_perm`` (derived from the transform itself) matches too.
+
+``NttPlan.fwd`` / ``inv`` launch the CUDA kernel K1 (``csrc/ntt.cu``) for a
+CUDA tensor and run the plain torch version (``ntt_fwd_plain`` /
+``ntt_inv_plain``) for a CPU tensor.  The JAX plan's uniform-stage loop
+tables exist only to keep XLA graphs small and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import kernels
+from . import modmath as mm
+
+MAX_KERNEL_N = 1 << 15  # one row in shared memory: N * 4 B <= 227 KiB
+
+
+def _bit_reverse_perm(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+def _pow_table(base: int, n: int, q: int) -> np.ndarray:
+    """[base^0, ..., base^{n-1}] mod q, vectorized square-and-multiply."""
+    exps = np.arange(n, dtype=np.uint64)
+    result = np.ones(n, dtype=np.uint64)
+    b = np.uint64(base % q)
+    qq = np.uint64(q)
+    k = 0
+    while (1 << k) < n:
+        mask = (exps >> np.uint64(k)) & np.uint64(1)
+        result = np.where(mask == 1, result * b % qq, result)
+        b = b * b % qq
+        k += 1
+    return result
+
+
+def _psi_tables(n: int, q: int, psi: int):
+    """(psis, ipsis, ninv): psi^brv(i) and psi^-brv(i) tables plus n^{-1},
+    standard form, uint32 numpy."""
+    brv = _bit_reverse_perm(n)
+    psis = _pow_table(psi, n, q)[brv].astype(np.uint32)
+    ipsis = _pow_table(pow(psi, -1, q), n, q)[brv].astype(np.uint32)
+    return psis, ipsis, pow(n, -1, q)
+
+
+def ntt_fwd_plain(a: torch.Tensor, psis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain forward NTT.  a: int [..., L, N]; psis: [L, N] twiddle rows of
+    those limbs; q: int64 [L].  Cooley-Tukey stages, as host_ntt_fwd."""
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    L = a.shape[-2]
+    qv = q.long().view(L, 1, 1)
+    w_all = psis.long()
+    x = a.long()
+    m = 1
+    while m < n:
+        t = n // (2 * m)
+        x = x.reshape(*lead, m, 2, t)
+        w = w_all[:, m:2 * m].reshape(L, m, 1)
+        u = x[..., 0, :]
+        v = x[..., 1, :] * w % qv
+        s = u + v
+        d = u - v
+        x = torch.stack([torch.where(s >= qv, s - qv, s),
+                         torch.where(d < 0, d + qv, d)], dim=-2)
+        m *= 2
+    return x.reshape(*lead, n).int()
+
+
+def ntt_inv_plain(a: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor,
+                  ninv: torch.Tensor) -> torch.Tensor:
+    """Plain inverse NTT (Gentleman-Sande, then 1/N), as host_ntt_inv.
+    ninv: int64 [L]."""
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    L = a.shape[-2]
+    qv = q.long().view(L, 1, 1)
+    w_all = ipsis.long()
+    x = a.long()
+    m = n
+    while m > 1:
+        h = m // 2
+        t = n // m
+        x = x.reshape(*lead, h, 2, t)
+        w = w_all[:, h:2 * h].reshape(L, h, 1)
+        u = x[..., 0, :]
+        v = x[..., 1, :]
+        s = u + v
+        d = u - v
+        x = torch.stack([torch.where(s >= qv, s - qv, s),
+                         torch.where(d < 0, d + qv, d) * w % qv], dim=-2)
+        m //= 2
+    x = x.reshape(*lead, n)
+    return (x * ninv.long().view(L, 1) % q.long().view(L, 1)).int()
+
+
+class NttPlan:
+    """NTT tables for a fixed prime chain (Q limbs + specials), on one
+    device.  Device tables are int32 ``[L_total, N]``; each transform
+    takes a tuple of limb indices naming the rows that take part."""
+
+    def __init__(self, n: int, primes: Sequence[int], roots: Sequence[int],
+                 device="cpu"):
+        self.n = n
+        self.logn = n.bit_length() - 1
+        self.primes = tuple(primes)
+        self.device = torch.device(device)
+        L = len(primes)
+        psis = np.empty((L, n), dtype=np.uint32)
+        ipsis = np.empty((L, n), dtype=np.uint32)
+        ninv = np.empty((L,), dtype=np.uint32)
+        for i, (q, psi) in enumerate(zip(primes, roots)):
+            psis[i], ipsis[i], ninv[i] = _psi_tables(n, q, psi)
+        self.psis_np = psis  # host copies (encoding, keygen)
+        self.ipsis_np = ipsis
+        dev = self.device
+        self.psis = mm.to_tensor(psis, dev)
+        self.ipsis = mm.to_tensor(ipsis, dev)
+        self.psis_sh = mm.to_tensor(
+            np.stack([mm.host_shoup(psis[i], q) for i, q in enumerate(primes)]), dev)
+        self.ipsis_sh = mm.to_tensor(
+            np.stack([mm.host_shoup(ipsis[i], q) for i, q in enumerate(primes)]), dev)
+        self.ninv = mm.to_tensor(ninv, dev)
+        self.ninv_sh = mm.to_tensor(
+            np.array([mm.host_shoup(np.array(ninv[i]), q) for i, q in enumerate(primes)],
+                     dtype=np.uint32), dev)
+        self.q = mm.to_tensor(np.array(primes, dtype=np.uint32), dev)
+        self._idx_cache = {}
+        # exponent map: eval position j holds m(psi^{exp[j]})
+        self._exp = self._derive_exponents()
+        pos = np.full(2 * n, -1, dtype=np.int64)
+        pos[self._exp] = np.arange(n)
+        self._pos_of_exp = pos
+        self._auto_cache = {}
+
+    def _derive_exponents(self) -> np.ndarray:
+        """eval position -> exponent of psi (relative to NTT(X)[0]), via
+        NTT(X) and a discrete log; see the JAX plan for why relative
+        exponents give the same permutations."""
+        n = self.n
+        q = self.primes[0]
+        a = np.zeros(n, dtype=np.uint64)
+        a[1] = 1
+        vals = host_ntt_fwd(a, q, self.psis_np[0].astype(np.uint64))
+        table = {}
+        g = int(vals[0])
+        x = 1
+        for e in range(2 * n):
+            table[x] = e
+            x = x * g % q
+        exps = np.array([table[int(v)] for v in vals], dtype=np.int64)
+        assert np.all(exps % 2 == 1), "exponent table not odd — NTT wiring bug"
+        return exps
+
+    def auto_perm(self, g: int) -> np.ndarray:
+        """Index permutation P with out_eval[j] = in_eval[P[j]] implementing
+        m(X) -> m(X^g) in the evaluation domain (g odd, mod 2N); int32."""
+        g = g % (2 * self.n)
+        if g not in self._auto_cache:
+            perm = self._pos_of_exp[(g * self._exp) % (2 * self.n)]
+            assert np.all(perm >= 0)
+            self._auto_cache[g] = perm.astype(np.int32)
+        return self._auto_cache[g]
+
+    def limb_index(self, limbs: Tuple[int, ...]) -> torch.Tensor:
+        key = tuple(limbs)
+        if key not in self._idx_cache:
+            self._idx_cache[key] = torch.tensor(key, dtype=torch.int32,
+                                                device=self.device)
+        return self._idx_cache[key]
+
+    def fwd(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
+        """Forward NTT of [..., L, N] Montgomery coefficients (natural order)
+        -> evaluation form (bit-reversed order)."""
+        if a.is_cuda:
+            return self._launch(a, limbs, inverse=False)
+        idx = self.limb_index(limbs).long()
+        return ntt_fwd_plain(a, self.psis[idx], self.q[idx])
+
+    def inv(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
+        """Inverse NTT: evaluation form -> natural-order coefficients,
+        including the 1/N scaling."""
+        if a.is_cuda:
+            return self._launch(a, limbs, inverse=True)
+        idx = self.limb_index(limbs).long()
+        return ntt_inv_plain(a, self.ipsis[idx], self.q[idx], self.ninv[idx])
+
+    def _launch(self, a: torch.Tensor, limbs, inverse: bool) -> torch.Tensor:
+        a = a.contiguous()
+        L, n = a.shape[-2], a.shape[-1]
+        if L != len(limbs) or n != self.n:
+            raise ValueError(f"ntt: data {tuple(a.shape)} does not match "
+                             f"{len(limbs)} limbs of N={self.n}")
+        if n > MAX_KERNEL_N:
+            raise ValueError(f"ntt kernel holds a row in shared memory: N <= {MAX_KERNEL_N}")
+        idx = self.limb_index(limbs)
+        tw, tw_sh = (self.ipsis, self.ipsis_sh) if inverse else (self.psis, self.psis_sh)
+        kernels.check_cuda("ntt", a, idx, tw, tw_sh, self.q, self.ninv, self.ninv_sh)
+        out = torch.empty_like(a)
+        kernels.launch(
+            "imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd",
+            kernels.ptr(out), kernels.ptr(a), kernels.ptr(idx), a.numel() // n, L,
+            self.logn, kernels.ptr(tw), kernels.ptr(tw_sh), kernels.ptr(self.q),
+            kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh), int(inverse))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side transforms (numpy uint64, standard form) — key generation and
+# encoding; identical wiring to the device transforms.
+# ---------------------------------------------------------------------------
+
+
+def host_ntt_fwd(a: np.ndarray, q: int, psis: np.ndarray) -> np.ndarray:
+    """Forward negacyclic NTT on host.  a: uint64[..., n] standard form,
+    natural order -> bit-reversed eval order.  psis: table from _psi_tables."""
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    a = a.astype(np.uint64) % np.uint64(q)
+    psis = psis.astype(np.uint64)
+    m = 1
+    while m < n:
+        t = n // (2 * m)
+        a = a.reshape(*lead, m, 2, t)
+        s = psis[m : 2 * m].reshape(m, 1)
+        u = a[..., 0, :]
+        v = a[..., 1, :] * s % np.uint64(q)
+        a = np.stack([(u + v) % np.uint64(q), (u - v + np.uint64(q)) % np.uint64(q)], axis=-2)
+        m *= 2
+    return a.reshape(*lead, n)
+
+
+def host_ntt_inv(a: np.ndarray, q: int, ipsis: np.ndarray, ninv: int) -> np.ndarray:
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    a = a.astype(np.uint64) % np.uint64(q)
+    ipsis = ipsis.astype(np.uint64)
+    m = n
+    while m > 1:
+        h = m // 2
+        t = n // m
+        a = a.reshape(*lead, h, 2, t)
+        s = ipsis[h : 2 * h].reshape(h, 1)
+        u = a[..., 0, :]
+        v = a[..., 1, :]
+        a = np.stack(
+            [(u + v) % np.uint64(q), (u - v + np.uint64(q)) * s % np.uint64(q)],
+            axis=-2,
+        )
+        m //= 2
+    a = a.reshape(*lead, n)
+    return a * np.uint64(ninv) % np.uint64(q)

@@ -1,0 +1,65 @@
+"""Carry state of the JAX package, given as numpy arrays, into the port.
+
+Lets both packages compute on the same keys and ciphertexts: a context's
+secret, public, relinearization and rotation keys (with the galois ->
+{set: row} map that picks among key sets), a DiagDB and ciphertexts.
+Residues arrive as uint32 (the JAX dtype) and are stored as int32 with
+the same bits.  Only numpy arrays cross: this module never imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ckks.context import Ciphertext, CkksContext
+from ..matching.enrollers import DiagDB
+from ..ops import modmath as mm
+
+
+def load_context_state(ctx: CkksContext, *, s_eval: np.ndarray, pk_b: np.ndarray,
+                       pk_a: np.ndarray, relin_key: np.ndarray,
+                       rot_sets: Sequence[Tuple[np.ndarray, np.ndarray]] = (),
+                       rot_keys: Optional[Dict[int, Dict[int, int]]] = None,
+                       pow2_set_idx: Optional[int] = None,
+                       pow2_rots: Sequence[int] = ()):
+    """Replace ctx's keys with the given ones (JAX layouts: s_eval
+    [Ltot, N] Montgomery; pk [Lq, N]; relin_key [dnum, 2, Ltot, N]; each
+    rotation set (perms [R, N], keys [R, dnum, 2, Ltot, N])).  The host
+    copy of the secret used for further key generation follows."""
+    shapes = {"s_eval": (s_eval, (ctx.Ltot, ctx.n)), "pk_b": (pk_b, (ctx.Lq, ctx.n)),
+              "pk_a": (pk_a, (ctx.Lq, ctx.n)),
+              "relin_key": (relin_key, (ctx.dnum, 2, ctx.Ltot, ctx.n))}
+    for name, (arr, shape) in shapes.items():
+        if tuple(np.shape(arr)) != shape:
+            raise ValueError(f"{name}: shape {np.shape(arr)}, expected {shape}")
+    dev = ctx.device
+    ctx.s_eval = mm.to_tensor(s_eval, dev)
+    ctx._s_eval_std = np.stack([
+        mm.host_from_mont(np.asarray(s_eval[i], dtype=np.uint32), q)
+        for i, q in enumerate(ctx.all_primes)]).astype(np.uint64)
+    ctx.pk_b = mm.to_tensor(pk_b, dev)
+    ctx.pk_a = mm.to_tensor(pk_a, dev)
+    ctx.relin_key = mm.to_tensor(relin_key, dev)
+    ctx._rot_sets = [
+        (torch.from_numpy(np.array(p, dtype=np.int32)).to(dev), mm.to_tensor(k, dev))
+        for p, k in rot_sets]
+    ctx.rot_keys = {int(g): {int(s): int(r) for s, r in d.items()}
+                    for g, d in (rot_keys or {}).items()}
+    if pow2_set_idx is not None:
+        ctx._pow2_set_idx = pow2_set_idx
+    ctx._pow2_rots = list(pow2_rots)
+
+
+def ciphertext(data: np.ndarray, scale: float, device="cpu") -> Ciphertext:
+    """A JAX ciphertext's data [k, l, N] (uint32) and scale."""
+    return Ciphertext(mm.to_tensor(data, device), float(scale))
+
+
+def diag_db(data: np.ndarray, num_vectors: int, scale: float, bsgs: bool,
+            n1: int, device="cpu") -> DiagDB:
+    """A JAX DiagDB's fields ([groups, dim, 2, L, N] uint32 data)."""
+    return DiagDB(mm.to_tensor(data, device), int(num_vectors), float(scale),
+                  bool(bsgs), int(n1))

@@ -1,0 +1,112 @@
+"""Where the time goes in the port's HyDia main path on one GPU.
+
+    python3 -m image_matching_tpu_torch.utils.slice_profile [--log2n 16]
+
+Sets up HyDia (approach 5, in-memory DB, production parameters) step by
+step, timing keygen, enrollment and rotation keys; times similarity,
+compare and the final EvalSum of membership, plus whole membership and
+index calls, three times each after a first call; then runs
+torch.profiler over one membership and one similarity and reports device
+kernel time, busy share (kernel time over the profiled wall time) and the
+time and launches of each hand-written kernel.  Prints the summary and
+writes it with the profiler tables to --out.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
+from image_matching_tpu.matching.config import MatchConfig
+from image_matching_tpu.utils.io import gen_dataset
+
+from ..ckks.context import CkksContext
+from ..matching import enrollers, receivers, senders
+from ..ops import kernels
+
+OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel")
+
+
+def timed(out, label, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    out[label] = time.perf_counter() - t
+    return r
+
+
+def run(log2n: int, say, log):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    say(f"{smi}; torch {torch.__version__}")
+    cfg = MatchConfig()
+    params = SchemeParams.create(mult_depth=compute_required_depth(5, cfg.comp_depth))
+    query, db = gen_dataset(1 << log2n, cfg.vector_dim, seed=0)
+    kernels.lib()
+    setup = {}
+    ctx = timed(setup, "ctx_keygen_s", lambda: CkksContext(params, seed=0, device="cuda"))
+    ddb = timed(setup, "enroll_s", lambda: enrollers.enroll_diag(ctx, cfg, db))
+    sender = senders.DiagonalSender(ctx, cfg, ddb)
+    receiver = receivers.DiagonalReceiver(ctx, cfg, db.shape[0])
+    timed(setup, "pow2_keys_s", ctx.gen_power_of_two_rotation_keys)
+    timed(setup, "bsgs_keys_s",
+          lambda: ctx.gen_rotation_keys(sender.required_rotations(), force=True))
+    qcts = timed(setup, "encrypt_query_s", lambda: receiver.encrypt_query(query))
+    timed(setup, "first_membership_s", lambda: sender.run_membership(qcts))
+    say("setup " + json.dumps(setup))
+    for rep in range(3):
+        r = {}
+        scores = timed(r, "similarity_s", lambda: sender.compute_similarity(qcts))
+        flags = timed(r, "compare_s", lambda: sender._compare_many(scores))
+        out = timed(r, "reduce_s", lambda: sender._membership_reduce(flags))
+        timed(r, "membership_s", lambda: sender.run_membership(qcts))
+        timed(r, "index_s", lambda: sender.run_index(qcts))
+        say(f"rep {rep} " + json.dumps(r))
+    say(f"membership decrypts to {receiver.decrypt_membership(out)}")
+
+    for label, fn in [("membership", lambda: sender.run_membership(qcts)),
+                      ("similarity", lambda: sender.compute_similarity(qcts))]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        ka = prof.key_averages()
+        dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev) / 1e6
+        ours = {k: (sum(e.self_device_time_total for e in dev if k in e.key) / 1e6,
+                    sum(e.count for e in dev if k in e.key)) for k in OURS}
+        say(f"[{label}] profiled wall {wall:.4f} s, device kernel time {busy:.4f} s, "
+            f"busy share {busy / wall:.3f}, kernel launches {sum(e.count for e in dev)}, "
+            f"(seconds, launches) of ours {json.dumps(ours)}")
+        log.write(ka.table(sort_by="self_cuda_time_total", row_limit=30,
+                           max_name_column_width=60) + "\n")
+    say(f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--log2n", type=int, default=16, help="gallery size 2^log2n")
+    ap.add_argument("--out", default="build/slice_profile.log")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("slice_profile: needs a CUDA device")
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "w") as log:
+        def say(msg):
+            print(msg, flush=True)
+            log.write(msg + "\n")
+
+        run(args.log2n, say, log)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,158 @@
+"""The port's CUDA kernels on the card: each kernel bit-exact against its
+plain torch version on the same inputs, launch errors raised, and the
+whole HyDia slice on the card bit-exact with the same slice on the CPU.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  This
+file imports neither jax nor tests/conftest.py's jax setup, so on the
+machine with the card (which has no jax) it runs as
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth, root_of_unity
+from image_matching_tpu.matching.config import MatchConfig
+from image_matching_tpu.utils import io as dio
+from image_matching_tpu_torch.ckks.context import CkksContext, fbc_plain, ks_mac_plain
+from image_matching_tpu_torch.matching import senders
+from image_matching_tpu_torch.matching.protocol import MatchingProtocol
+from image_matching_tpu_torch.ops import kernels
+from image_matching_tpu_torch.ops import ntt
+
+pytestmark = pytest.mark.cuda
+
+PARAMS = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
+
+
+def _device():
+    # decided when a test runs, never at import: every xdist worker must
+    # collect the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (the kernels build there)")
+    return torch.device("cuda:0")
+
+
+def _residues(gen, shape, q):
+    """Uniform residues; q int64 broadcastable against shape."""
+    return (torch.randint(0, 1 << 62, shape, generator=gen, device=q.device) % q).int()
+
+
+def _launched(name, fn):
+    before = kernels.counts()[name]
+    out = fn()
+    assert kernels.counts()[name] == before + 1, f"{name} was not launched"
+    return out
+
+
+@pytest.mark.parametrize("n,limbs,batch", [(512, (0, 5, 19), 4), (32768, (2, 0, 3), 5)])
+def test_ntt_kernel_matches_plain(n, limbs, batch):
+    dev = _device()
+    p = SchemeParams.create(ring_dim=n, mult_depth=11, security="none")
+    primes = (p.q_primes + p.sp_primes)[: max(limbs) + 1]
+    plan = ntt.NttPlan(n, primes, [root_of_unity(q, 2 * n) for q in primes], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    idx = plan.limb_index(limbs).long()
+    a = _residues(gen, (batch, len(limbs), n), plan.q[idx].long()[:, None])
+    fwd = _launched("ntt_fwd", lambda: plan.fwd(a, limbs))
+    assert torch.equal(fwd, ntt.ntt_fwd_plain(a, plan.psis[idx], plan.q[idx]))
+    inv = _launched("ntt_inv", lambda: plan.inv(a, limbs))
+    assert torch.equal(inv, ntt.ntt_inv_plain(a, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]))
+    assert torch.equal(plan.inv(fwd, limbs), a)
+
+
+def test_ct_dot_kernel_matches_plain():
+    """Blocked and not, a long contraction (K=512), unequal limb counts."""
+    dev = _device()
+    ctx = CkksContext(PARAMS, seed=1, device=dev)
+    L = PARAMS.num_limbs
+    q, _ = ctx._qrow(ctx.q_limbs(L))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [
+        (_residues(gen, (512, 2, L, 512), q), _residues(gen, (512, 2, L, 512), q)),
+        (_residues(gen, (8, 2, L, 512), q), _residues(gen, (3, 8, 2, L, 512), q)[..., :5, :]),
+        (_residues(gen, (8, 2, L, 512), q)[..., :4, :], _residues(gen, (8, 2, L, 512), q)),
+    ]
+    for A, B in cases:
+        got = _launched("ct_dot", lambda: senders.ct_dot(ctx, A, B))
+        assert torch.equal(got, senders.ct_dot_plain(ctx, A, B))
+
+
+def test_fbc_kernel_matches_plain():
+    dev = _device()
+    ctx = CkksContext(PARAMS, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    l = ctx.Lq
+    grp = tuple(ctx.groups[1])
+    for src, dst in [(grp, tuple(i for i in ctx.ext_limbs(l) if i not in grp)),
+                     (ctx.sp_limbs(), ctx.q_limbs(l)), (ctx.sp_limbs(), ctx.q_limbs(3))]:
+        qs, _ = ctx._qrow(src)
+        x = _residues(gen, (2, 7, len(src), ctx.n), qs)
+        got = _launched("fbc", lambda: ctx._fbc(x, src, dst))
+        assert torch.equal(got, fbc_plain(x, ctx._fbc_consts(src, dst)))
+
+
+def test_ks_mac_kernel_matches_plain():
+    """Every digs/ksk sharing mode, with and without the fused permutation,
+    at the top level and at a level with fewer digits."""
+    dev = _device()
+    ctx = CkksContext(PARAMS, seed=1, device=dev)
+    ctx.gen_rotation_keys([1, 2, 4, 8])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    perms, keys = ctx._rot_rows([1, 2, 4, 8])
+    for l in (ctx.Lq, 4):
+        ext = ctx.ext_limbs(l)
+        q, rinv = ctx._qrow(ext)
+        ndig = len([g for g in ctx.groups if g[0] < l])
+        digs = _residues(gen, (4, ndig, len(ext), ctx.n), q)
+        for d, k, p in [(digs[0], keys, perms), (digs, keys, None), (digs, ctx.relin_key, None),
+                        (digs[0], ctx.relin_key, None), (digs, keys, perms)]:
+            got = _launched("ks_mac", lambda: ctx._ks_mac(d, k, l, p))
+            assert torch.equal(got, ks_mac_plain(d, k, l, ctx.Lq, q, rinv, p))
+
+
+def test_launch_error_raises():
+    """A launch the kernel refuses (more source limbs than it holds)
+    raises instead of returning garbage."""
+    dev = _device()
+    ctx = CkksContext(PARAMS, seed=1, device=dev)
+    src, dst = tuple(range(9)), tuple(range(9, 12))
+    x = torch.zeros((1, 9, ctx.n), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="imtpu_fbc"):
+        ctx._fbc(x, src, dst)
+
+
+def test_slice_on_card_matches_cpu():
+    """HyDia membership and index on the card equal the CPU (plain) run
+    bit for bit, given the same numpy noise, and go through every kernel."""
+    dev = _device()
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(40, 64, seed=1)
+
+    def noise(seed, batch, n):
+        rng = np.random.default_rng(seed)
+        v = rng.integers(-1, 2, size=(batch, n))
+        e = np.rint(rng.normal(0.0, params.sigma, size=(2, batch, n))).astype(np.int64)
+        return v, e[0], e[1]
+
+    outs = {}
+    for d in ("cpu", dev):
+        ctx = CkksContext(params, seed=7, device=d, noise=noise)
+        kernels.reset_counts()
+        proto = MatchingProtocol.setup(5, db, cfg, ctx=ctx)
+        qcts = proto.encrypt_query(query)
+        mem = proto.membership(qcts)
+        idx = proto.index(qcts)
+        outs[str(d)] = (mem, idx, proto, kernels.counts())
+    (mc, ic, _, cc), (mg, ig, pg, cg) = outs["cpu"], outs[str(dev)]
+    assert all(v == 0 for v in cc.values())
+    assert all(v > 0 for v in cg.values()), cg
+    assert torch.equal(mc.data, mg.data.cpu())
+    for a, b in zip(ic, ig):
+        assert torch.equal(a.data, b.data.cpu())
+    assert pg.decrypt_membership(mg) is True
+    assert pg.decrypt_index(ig) == [0]
