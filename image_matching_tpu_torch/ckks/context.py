@@ -18,6 +18,13 @@ multiply-accumulate with the fused automorphism gather (K4, ``_ks_mac``).
 Each has its plain torch version here, used for CPU tensors.  The JAX
 package's ``vmap``/``scan`` over rotations become an explicit leading
 batch axis or a Python loop.
+
+Seed-compressed (symmetric) encryption of streamed DB groups keeps only
+c0; c1 is regenerated from a Threefry stream (``ops/prng.py``, kernel K5).
+Its two passes around the NTT are kernel K6 (``_seeded_pre``,
+``_seeded_c0``).  Its noise comes from a ``torch.Generator`` seeded by the
+numpy draw the JAX package turns into its ``jax.random`` key; a
+``seeded_noise`` callable replaces it.
 """
 
 from __future__ import annotations
@@ -34,12 +41,15 @@ from image_matching_tpu.ckks.params import SchemeParams, root_of_unity
 
 from ..ops import kernels
 from ..ops import modmath as mm
+from ..ops import prng
 from ..ops.ntt import NttPlan, host_ntt_fwd
 
 R = mm.R
 
 # noise(seed, batch, n) -> (v, e0, e1) signed integer arrays [batch, n]
 NoiseFn = Callable[[int, int, int], Tuple[np.ndarray, np.ndarray, np.ndarray]]
+# seeded_noise(seed, batch, n) -> e, a signed integer array [batch, n]
+SeededNoiseFn = Callable[[int, int, int], np.ndarray]
 
 
 @dataclasses.dataclass
@@ -147,12 +157,44 @@ def ks_mac_plain(digs: torch.Tensor, ksk: torch.Tensor, l: int, Lq: int,
     return torch.stack([acc0, acc1], dim=1)
 
 
+# ---------------------------------------------------------------------------
+# K6: seeded encryption passes — plain versions
+# ---------------------------------------------------------------------------
+
+
+def seeded_pre_plain(ctx: "CkksContext", hi: torch.Tensor, lo: torch.Tensor,
+                     e: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain version of K6's pre pass: (hi, lo) split coefficients and the
+    small signed noise e, each [B, N] -> Montgomery standard residues of
+    m + e, int32 [B, l, N]."""
+    lim = ctx.q_limbs(l)
+    q, rinv = ctx._qrow(lim)
+    m = ctx._coeffs_from_split(hi, lo, l)
+    ev = e.long()[..., None, :]
+    es = torch.where(ev < 0, q + ev, ev)
+    return mm.mont_mul(mm.mod_add(m, es, q), ctx.r2_64[:l, None], q, rinv)
+
+
+def seeded_c0_plain(ctx: "CkksContext", x: torch.Tensor, seed: int,
+                    group: int) -> torch.Tensor:
+    """Plain version of K6's c0 pass: x [B, l, N] (NTT of the pre pass) ->
+    c0 = x - c1 * s with c1 = expand_c1(seed, group, B, l)."""
+    B, l, n = x.shape
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
+    c1 = prng.uniform_residues_plain(seed, group, (B, l, n), ctx.q32, ctx.r1_32)
+    return mm.mod_sub(x, mm.mont_mul(c1, ctx.s_eval[:l], q, rinv), q)
+
+
 class CkksContext:
     """Scheme context + evaluator.  One instance per parameter set, with
     its tables and keys on ``device``."""
 
+    _SPLIT_BITS = 24            # coefficient split: c + OFFSET = hi*2^24 + lo
+    _SPLIT_OFFSET = 1 << 47     # |coeff| must stay below this
+
     def __init__(self, params: SchemeParams, seed: int = 0, device="cpu",
-                 noise: Optional[NoiseFn] = None):
+                 noise: Optional[NoiseFn] = None,
+                 seeded_noise: Optional[SeededNoiseFn] = None):
         self.params = params
         self.device = torch.device(device)
         n = params.ring_dim
@@ -176,6 +218,14 @@ class CkksContext:
         self.rinv64 = torch.tensor([mm.host_rinv(q) for q in self.all_primes],
                                    dtype=torch.int64, device=dev)
         self.r2_64 = torch.tensor(self.r2_np.astype(np.int64), device=dev)
+        # seeded encryption (K5, K6): R and R^2 mod q, 2^56 mod q (the hi
+        # half's weight times R) and the split offset mod q
+        self.r1_32 = mm.to_tensor(np.array([c[1] for c in consts], dtype=np.uint32), dev)
+        self.r2_32 = mm.to_tensor(self.r2_np, dev)
+        self.c24_32 = mm.to_tensor(np.array(
+            [(1 << (self._SPLIT_BITS + 32)) % q for q in self.all_primes], dtype=np.uint32), dev)
+        self.offm_32 = mm.to_tensor(np.array(
+            [self._SPLIT_OFFSET % q for q in self.all_primes], dtype=np.uint32), dev)
 
         # digit partition over full Q basis
         g0 = math.ceil(self.Lq / params.dnum)
@@ -188,6 +238,7 @@ class CkksContext:
 
         self.seed = seed
         self.noise = noise
+        self.seeded_noise = seeded_noise
         self._rng = np.random.default_rng(seed)
         self._qrow_cache: Dict = {}
         self._const_cache: Dict = {}
@@ -444,6 +495,157 @@ class CkksContext:
                 scale: Optional[float] = None) -> Ciphertext:
         data = self.encrypt_batch(values, limbs, scale)[0]
         return Ciphertext(data, scale if scale is not None else self.fresh_scale)
+
+    # ------------------------------------------------------------------
+    # seed-compressed (symmetric) encryption for streamed databases: only
+    # c0 is stored and streamed; c1 is expanded from (seed, group) on the
+    # device when the group is used
+    # ------------------------------------------------------------------
+
+    def uniform_mont(self, seed: int, group: int, shape_prefix, l: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Uniform residues in [0, q_i) per limb, int32 [*shape_prefix, l,
+        N] (one leading axis): the Threefry stream of ``ops/prng.py``.
+        Uniform residues are uniform in Montgomery/eval form too, so the
+        output is directly the seed-expanded c1 of an RLWE ciphertext."""
+        (B,) = tuple(shape_prefix)
+        return prng.uniform_residues(seed, group, (B, l, self.n), self.q32, self.qneg32,
+                                     self.r1_32, self.r2_32, out=out)
+
+    def expand_c1(self, seed: int, group: int, B: int, l: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Regenerate the c1 of a batch encrypted with
+        ``encrypt_seeded_batch(seed, group)``: int32 [B, l, N] (written into
+        ``out`` when given).  Kernel K5 on CUDA."""
+        return self.uniform_mont(seed, group, (B,), l, out=out)
+
+    def split_coeffs(self, coeffs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Signed int64 coefficients [..., N] -> (hi, lo) uint32 halves of
+        coeff + OFFSET, the compact host->device transfer form (8 bytes per
+        coefficient instead of 4 per limb)."""
+        off = np.uint64(self._SPLIT_OFFSET)
+        if np.abs(coeffs).max(initial=0) >= self._SPLIT_OFFSET:
+            raise ValueError("coefficient overflows the 48-bit split")
+        u = (coeffs.astype(np.int64) + np.int64(off)).astype(np.uint64)
+        hi = (u >> np.uint64(self._SPLIT_BITS)).astype(np.uint32)
+        lo = (u & np.uint64((1 << self._SPLIT_BITS) - 1)).astype(np.uint32)
+        return hi, lo
+
+    def _coeffs_from_split(self, hi: torch.Tensor, lo: torch.Tensor, l: int) -> torch.Tensor:
+        """(hi, lo) [..., N] -> standard residues int32 [..., l, N] (plain)."""
+        q, rinv = self._qrow(self.q_limbs(l))
+        # mont_mul(hi, 2^24 * R) = hi * 2^24 mod q; lo < 2^24 < q already
+        t = mm.mod_add(mm.mont_mul(hi.long()[..., None, :], self.c24_32[:l, None], q, rinv),
+                       lo.long()[..., None, :], q)
+        return mm.mod_sub(t, self.offm_32[:l, None], q)
+
+    def encode_split(self, values: np.ndarray,
+                     scale: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Host CKKS encode of [B, slots] values to the (hi, lo) uint32
+        transfer form consumed by ``encrypt_seeded_from_split`` (a
+        deterministic function of the plaintext, independent of keys and
+        noise)."""
+        values = np.atleast_2d(np.asarray(values, dtype=np.float64))
+        sc = scale if scale is not None else self.fresh_scale
+        return self.split_coeffs(encoding.encode(values, self.n, sc))
+
+    def _seeded_noise(self, seed: int, batch: int) -> torch.Tensor:
+        """Rounded gaussian e, int32 [batch, n] on the device, from
+        ``self.seeded_noise`` or a torch.Generator seeded by seed."""
+        if self.seeded_noise is not None:
+            e = np.asarray(self.seeded_noise(seed, batch, self.n))
+            return torch.as_tensor(e.astype(np.int32)).to(self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        e = torch.randn((batch, self.n), generator=gen, device=self.device,
+                        dtype=torch.float32) * self.params.sigma
+        return torch.round(e).int()
+
+    def _seeded_pre(self, hi: torch.Tensor, lo: torch.Tensor, e: torch.Tensor,
+                    l: int) -> torch.Tensor:
+        """K6 pre pass on CUDA, ``seeded_pre_plain`` on the CPU."""
+        if not hi.is_cuda:
+            return seeded_pre_plain(self, hi, lo, e, l)
+        hi, lo, e = hi.contiguous(), lo.contiguous(), e.contiguous()
+        B, n = hi.shape
+        if lo.shape != hi.shape or e.shape != hi.shape or n != self.n or B > 65535:
+            raise ValueError(f"seeded_pre: shapes {tuple(hi.shape)}, {tuple(lo.shape)}, "
+                             f"{tuple(e.shape)} for N={self.n}")
+        kernels.check_cuda("seeded_pre", hi, lo, e, self.q32, self.qneg32, self.r2_32,
+                           self.c24_32, self.offm_32)
+        out = torch.empty((B, l, n), dtype=torch.int32, device=hi.device)
+        kernels.launch("imtpu_seeded_pre", "seeded_pre", kernels.ptr(out), kernels.ptr(hi),
+                       kernels.ptr(lo), kernels.ptr(e), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), kernels.ptr(self.r2_32),
+                       kernels.ptr(self.c24_32), kernels.ptr(self.offm_32), B, l, n)
+        return out
+
+    def _seeded_c0(self, x: torch.Tensor, seed: int, group: int) -> torch.Tensor:
+        """K6 c0 pass on CUDA (in place: the result overwrites x),
+        ``seeded_c0_plain`` on the CPU."""
+        if not x.is_cuda:
+            return seeded_c0_plain(self, x, seed, group)
+        B, l, n = x.shape
+        if n != self.n or B > 65535:
+            raise ValueError(f"seeded_c0: data {tuple(x.shape)} for N={self.n}")
+        kernels.check_cuda("seeded_c0", x, self.s_eval, self.q32, self.qneg32, self.r1_32,
+                           self.r2_32)
+        kernels.launch("imtpu_seeded_c0", "seeded_c0", kernels.ptr(x), kernels.ptr(x),
+                       kernels.ptr(self.s_eval), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), kernels.ptr(self.r1_32),
+                       kernels.ptr(self.r2_32), seed & prng.M32, group & prng.M32, B, l, n)
+        return x
+
+    def encrypt_seeded(self, hi: torch.Tensor, lo: torch.Tensor, e: torch.Tensor,
+                       seed: int, group: int, l: int) -> torch.Tensor:
+        """c0 of the seeded encryption of split coefficients (hi, lo) with
+        noise e (each [B, N] on the device): c0 = NTT(m + e) - c1 * s with
+        c1 = expand_c1(seed, group, B, l) -> int32 [B, l, N].  m and e are
+        added before one NTT (exact: the NTT is linear over Z_q), where the
+        JAX package transforms each."""
+        x = self.plan.fwd(self._seeded_pre(hi, lo, e, l), self.q_limbs(l))
+        return self._seeded_c0(x, seed, group)
+
+    def encrypt_seeded_from_split(self, hi: np.ndarray, lo: np.ndarray, seed: int,
+                                  group: int, limbs: Optional[int] = None) -> torch.Tensor:
+        """Seeded encryption from pre-encoded (hi, lo) coefficients: the 8
+        bytes per coefficient are the only host->device traffic; the noise,
+        NTT and seeded mask run on the device.  Draws one seed from the
+        context's numpy generator, as the JAX package does."""
+        l = limbs if limbs is not None else self.Lq
+        e = self._seeded_noise(int(self._rng.integers(0, 2 ** 63)), hi.shape[0])
+        return self.encrypt_seeded(mm.to_tensor(hi, self.device), mm.to_tensor(lo, self.device),
+                                   e, seed, group, l)
+
+    def encrypt_seeded_batch(self, values: np.ndarray, seed: int, group: int,
+                             limbs: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+        """Symmetric seeded encryption of [B, slots] values -> c0 only,
+        int32 [B, l, N] on the device; the matching c1 is
+        ``expand_c1(seed, group, B, l)``."""
+        hi, lo = self.encode_split(values, scale)
+        return self.encrypt_seeded_from_split(hi, lo, seed, group, limbs)
+
+    def encrypt_seeded_batch_host(self, values: np.ndarray, seed: int, group: int,
+                                  limbs: Optional[int] = None,
+                                  scale: Optional[float] = None) -> torch.Tensor:
+        """Host counterpart of ``encrypt_seeded_batch`` through the C++
+        enroller (``image_matching_tpu.utils.native.enroll_group``): c0 as a
+        CPU int32 tensor [B, l, N], no device work.  Its noise is drawn
+        from the context's numpy generator, as in the JAX package."""
+        from image_matching_tpu.utils import native
+
+        if not native.available():
+            raise RuntimeError("the native host enroller is not built (make -C native)")
+        values = np.atleast_2d(np.asarray(values, dtype=np.float64))
+        l = limbs if limbs is not None else self.Lq
+        sc = scale if scale is not None else self.fresh_scale
+        coeffs = encoding.encode(values, self.n, sc)
+        e = np.rint(self._rng.normal(0.0, self.params.sigma, size=coeffs.shape)).astype(np.int64)
+        s_std = np.ascontiguousarray(self._s_eval_std[:l].astype(np.uint32))
+        c0 = native.enroll_group(coeffs + e, self.q_np[:l], self.plan.psis_np[:l], s_std,
+                                 seed, group)
+        return torch.from_numpy(c0.view(np.int32))
 
     def _decrypt_impl(self, data: torch.Tensor) -> torch.Tensor:
         """[k, l, N] -> standard-form coefficient residues [l, N]."""

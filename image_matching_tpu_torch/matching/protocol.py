@@ -1,6 +1,6 @@
 """End-to-end protocol orchestration: enroller + sender + receiver wired
 together (port of image_matching_tpu/matching/protocol.py; approach 5
-with an in-memory encrypted DB)."""
+with an in-memory or a streamed, seed-compressed encrypted DB)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
 from image_matching_tpu.matching.config import MatchConfig
 
 from ..ckks.context import CkksContext, Ciphertext
-from . import enrollers, receivers, senders
+from . import enrollers, receivers, senders, streaming
 
 APPROACH_NAMES = {1: "Baseline", 2: "GROTE", 3: "Blind", 4: "HERS", 5: "Diagonal"}
 
@@ -30,12 +30,14 @@ class MatchingProtocol:
     def setup(approach: int, database: np.ndarray, cfg: Optional[MatchConfig] = None,
               params: Optional[SchemeParams] = None, seed: int = 0,
               ctx: Optional[CkksContext] = None, device="cpu",
-              streamed: bool = False) -> "MatchingProtocol":
+              streamed: bool = False, **stream_kw) -> "MatchingProtocol":
         """Build the context (depth from computeRequiredDepth) on `device`
-        unless one is given, generate keys, enroll the database.  The
-        streamed, seed-compressed store is not ported yet (ROADMAP A6)."""
-        if streamed:
-            raise NotImplementedError("the streamed DB is not ported yet: ROADMAP A6")
+        unless one is given, generate keys, enroll the database.  With
+        streamed=True the DB is enrolled seed-compressed into a DiagStore
+        (``streaming.enroll_diag_streamed``, which takes ``stream_kw``) and
+        served by the StreamedDiagonalSender."""
+        if streamed and approach == 4:
+            raise NotImplementedError("the streamed HERS store is not ported yet: ROADMAP A8")
         if approach in senders.NOT_PORTED:
             raise NotImplementedError(senders.NOT_PORTED[approach])
         cfg = cfg or MatchConfig()
@@ -44,8 +46,12 @@ class MatchingProtocol:
                 depth = compute_required_depth(approach, cfg.comp_depth, cfg.alpha_depth)
                 params = SchemeParams.create(mult_depth=depth)
             ctx = CkksContext(params, seed=seed, device=device)
-        db = enrollers.enroll_diag(ctx, cfg, database)
-        sender = senders.make_sender(approach, ctx, cfg, db)
+        if streamed:
+            store = streaming.enroll_diag_streamed(ctx, cfg, database, **stream_kw)
+            sender: senders.Sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
+        else:
+            db = enrollers.enroll_diag(ctx, cfg, database)
+            sender = senders.make_sender(approach, ctx, cfg, db)
         receiver = receivers.make_receiver(approach, ctx, cfg, database.shape[0])
         ctx.gen_power_of_two_rotation_keys()
         ctx.gen_rotation_keys(sender.required_rotations(), force=True)

@@ -110,6 +110,45 @@ class Sender:
         return self.index_scenario(query_cts)
 
 
+def diag_rotations(dim: int, bsgs: bool, n1: int) -> List[int]:
+    """Rotation keys a HyDia sender needs: the n1-1 baby and n2-1 giant
+    steps of BSGS, else the reference's dim-1 rotations."""
+    if bsgs:
+        return list(range(1, n1)) + [n1 * j for j in range(1, dim // n1)]
+    return list(range(1, dim))
+
+
+def diag_query_stack(ctx: CkksContext, qct: Ciphertext, n1: int) -> torch.Tensor:
+    """The query and its n1-1 baby rotations, [n1, 2, l, N]: one batched
+    hoisted keyswitch."""
+    if n1 == 1:
+        return qct.data[None]
+    digs = ctx.hoisted_precompute(qct)
+    rot = ctx.hoisted_rotate_stack(qct, digs, list(range(1, n1)))
+    return torch.cat([qct.data[None], rot], dim=0)
+
+
+def diag_group_score(ctx: CkksContext, Q: torch.Tensor, dbd: torch.Tensor, n1: int,
+                     prod_scale: float) -> Ciphertext:
+    """Similarity score ciphertext of one diagonal group dbd [dim, 2, l, N]
+    against the query stack Q: diagonal matrix-vector product, relinearize,
+    giant rotations (BSGS), rescale."""
+    n2 = dbd.shape[0] // n1
+    if n2 == 1:
+        t3 = ct_dot(ctx, Q, dbd)
+        return ctx.rescale_score(ctx.relinearize(Ciphertext(t3, prod_scale)))
+    # all inner sums: one blocked contraction + batched relin
+    t3 = ct_dot(ctx, Q, dbd.reshape(n2, n1, *dbd.shape[1:]))
+    inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
+    # giant rotations: one batched keyswitch over stacked rows
+    rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)], prod_scale)
+    q, _ = ctx._qrow(ctx.q_limbs(inners.shape[-2]))
+    summed = inners[0]
+    for r in rot:
+        summed = mm.mod_add(summed, r, q)
+    return ctx.rescale_score(Ciphertext(summed, prod_scale))
+
+
 class DiagonalSender(Sender):
     """Approach 5, HyDia: diagonal matrix-vector products with hoisted
     rotations; BSGS variant by default (diagonals pre-rotated at
@@ -121,45 +160,15 @@ class DiagonalSender(Sender):
         self.db = db
 
     def required_rotations(self) -> List[int]:
-        dim = self.cfg.vector_dim
-        if self.db.bsgs:
-            n1 = self.db.n1
-            n2 = dim // n1
-            return list(range(1, n1)) + [n1 * j for j in range(1, n2)]
-        return list(range(1, dim))
+        return diag_rotations(self.cfg.vector_dim, self.db.bsgs, self.db.n1)
 
     def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
-        ctx, dim = self.ctx, self.cfg.vector_dim
         qct = query[0]
-        n1 = self.db.n1 if self.db.bsgs else dim
-        n2 = dim // n1
+        n1 = self.db.n1 if self.db.bsgs else self.cfg.vector_dim
+        Q = diag_query_stack(self.ctx, qct, n1)
         prod_scale = qct.scale * self.db.scale
-        q, _ = ctx._qrow(ctx.q_limbs(qct.limbs))
-        # all baby rotations of the query: one batched hoisted keyswitch
-        if n1 > 1:
-            digs = ctx.hoisted_precompute(qct)
-            rot = ctx.hoisted_rotate_stack(qct, digs, list(range(1, n1)))
-            Q = torch.cat([qct.data[None], rot], dim=0)
-        else:
-            Q = qct.data[None]
-        scores = []
-        for dbd in self.db.data:  # [dim, 2, l, N] per group
-            if n2 == 1:
-                t3 = ct_dot(ctx, Q, dbd)
-                out = ctx.rescale_score(ctx.relinearize(Ciphertext(t3, prod_scale)))
-            else:
-                # all inner sums: one blocked contraction + batched relin
-                t3 = ct_dot(ctx, Q, dbd.reshape(n2, n1, *dbd.shape[1:]))
-                inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
-                # giant rotations: one batched keyswitch over stacked rows
-                rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)],
-                                       prod_scale)
-                summed = inners[0]
-                for r in rot:
-                    summed = mm.mod_add(summed, r, q)
-                out = ctx.rescale_score(Ciphertext(summed, prod_scale))
-            scores.append(out)
-        return scores
+        return [diag_group_score(self.ctx, Q, dbd, n1, prod_scale)
+                for dbd in self.db.data]  # [dim, 2, l, N] per group
 
 
 NOT_PORTED = {

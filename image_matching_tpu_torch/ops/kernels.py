@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "imtpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # C entry point -> its arguments before the trailing stream: "p" a device
 # pointer (c_void_p), "i" an int64_t.
@@ -38,11 +39,16 @@ _ENTRIES = {
     "imtpu_ct_dot": "pppiiiiiipp",
     "imtpu_fbc": "pppiiii",
     "imtpu_ks_mac": "ppippiiiiiiiipp",
+    "imtpu_expand_c1": "pppppiiiiii",
+    "imtpu_seeded_pre": "pppppppppiii",
+    "imtpu_seeded_c0": "pppppppiiiii",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
-# launch counters: one per kernel, the NTT counted per direction
-KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac")
+# launch counters: one per kernel, the NTT counted per direction and the
+# seeded encryption (K6) per pass
+KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
+           "seeded_pre", "seeded_c0")
 _counts = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -64,7 +70,7 @@ def sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -82,23 +88,44 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def _run_all(cmds):
+    """Run the commands side by side; return their logs; raise if any
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{logs[-1]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def build() -> Path:
     """Compile the kernels if the cached library is missing or stale;
-    return its path."""
+    return its path.  One nvcc per source, all started together, then one
+    link."""
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libimtpu_{source_hash()}.so"
     if out.exists():
         return out
     t0 = time.perf_counter()
+    nvcc, srcs = _nvcc(), sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f".{p.stem}.{out.stem}.{os.getpid()}.o" for p in srcs]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for o, p in zip(objs, srcs)]
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    try:
+        logs = _run_all(compile_cmds)
+        logs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_log = "\n".join(logs)
+    (BUILD_DIR / "build.log").write_text(build_log)
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     build_seconds = time.perf_counter() - t0
     return out

@@ -2,7 +2,8 @@
 
 Lets both packages compute on the same keys and ciphertexts: a context's
 secret, public, relinearization and rotation keys (with the galois ->
-{set: row} map that picks among key sets), a DiagDB and ciphertexts.
+{set: row} map that picks among key sets), a DiagDB, a streamed DiagStore
+and ciphertexts.
 Residues arrive as uint32 (the JAX dtype) and are stored as int32 with
 the same bits.  Only numpy arrays cross: this module never imports jax.
 """
@@ -16,6 +17,7 @@ import torch
 
 from ..ckks.context import Ciphertext, CkksContext
 from ..matching.enrollers import DiagDB
+from ..matching.streaming import DiagStore
 from ..ops import modmath as mm
 
 
@@ -63,3 +65,14 @@ def diag_db(data: np.ndarray, num_vectors: int, scale: float, bsgs: bool,
     """A JAX DiagDB's fields ([groups, dim, 2, L, N] uint32 data)."""
     return DiagDB(mm.to_tensor(data, device), int(num_vectors), float(scale),
                   bool(bsgs), int(n1))
+
+
+def diag_store(ctx: CkksContext, groups: Sequence[np.ndarray], num_vectors: int,
+               scale: float, bsgs: bool, n1: int, seed: int) -> DiagStore:
+    """A JAX DiagStore's fields: its c0 groups ([dim, L, N] uint32 each),
+    all placed resident on ctx's device; c1 follows from ``seed``."""
+    store = DiagStore(ctx, int(num_vectors), float(scale), bool(bsgs), int(n1), int(seed))
+    for g in groups:
+        store.groups.append(mm.to_tensor(np.asarray(g), ctx.device))
+        store.resident.append(True)
+    return store

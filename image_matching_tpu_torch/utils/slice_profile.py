@@ -1,11 +1,12 @@
 """Where the time goes in the port's HyDia main path on one GPU.
 
-    python3 -m image_matching_tpu_torch.utils.slice_profile [--log2n 16]
+    python3 -m image_matching_tpu_torch.utils.slice_profile [--log2n 16] [--streamed]
 
-Sets up HyDia (approach 5, in-memory DB, production parameters) step by
-step, timing keygen, enrollment and rotation keys; times similarity,
-compare and the final EvalSum of membership, plus whole membership and
-index calls, three times each after a first call; then runs
+Sets up HyDia (approach 5, production parameters; an in-memory DB, or
+with --streamed the seed-compressed DiagStore under the derived
+device-memory budget) step by step, timing keygen, enrollment and rotation
+keys; times similarity, compare and the final EvalSum of membership, plus
+whole membership and index calls, three times each after a first call; then runs
 torch.profiler over one membership and one similarity and reports device
 kernel time, busy share (kernel time over the profiled wall time) and the
 time and launches of each hand-written kernel.  Prints the summary and
@@ -27,10 +28,11 @@ from image_matching_tpu.matching.config import MatchConfig
 from image_matching_tpu.utils.io import gen_dataset
 
 from ..ckks.context import CkksContext
-from ..matching import enrollers, receivers, senders
+from ..matching import enrollers, receivers, senders, streaming
 from ..ops import kernels
 
-OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel")
+OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
+        "seeded_pre_kernel", "seeded_c0_kernel")
 
 
 def timed(out, label, fn):
@@ -42,7 +44,7 @@ def timed(out, label, fn):
     return r
 
 
-def run(log2n: int, say, log):
+def run(log2n: int, streamed: bool, say, log):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     say(f"{smi}; torch {torch.__version__}")
@@ -52,8 +54,14 @@ def run(log2n: int, say, log):
     kernels.lib()
     setup = {}
     ctx = timed(setup, "ctx_keygen_s", lambda: CkksContext(params, seed=0, device="cuda"))
-    ddb = timed(setup, "enroll_s", lambda: enrollers.enroll_diag(ctx, cfg, db))
-    sender = senders.DiagonalSender(ctx, cfg, ddb)
+    if streamed:
+        store = timed(setup, "enroll_s", lambda: streaming.enroll_diag_streamed(ctx, cfg, db))
+        sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
+        say(f"store: {store.num_groups} groups, {store.resident_count()} resident, "
+            f"{store.host_count()} in host memory")
+    else:
+        ddb = timed(setup, "enroll_s", lambda: enrollers.enroll_diag(ctx, cfg, db))
+        sender = senders.DiagonalSender(ctx, cfg, ddb)
     receiver = receivers.DiagonalReceiver(ctx, cfg, db.shape[0])
     timed(setup, "pow2_keys_s", ctx.gen_power_of_two_rotation_keys)
     timed(setup, "bsgs_keys_s",
@@ -95,6 +103,8 @@ def run(log2n: int, say, log):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2n", type=int, default=16, help="gallery size 2^log2n")
+    ap.add_argument("--streamed", action="store_true",
+                    help="serve the gallery from the streamed, seed-compressed store")
     ap.add_argument("--out", default="build/slice_profile.log")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -105,7 +115,7 @@ def main():
             print(msg, flush=True)
             log.write(msg + "\n")
 
-        run(args.log2n, say, log)
+        run(args.log2n, args.streamed, say, log)
 
 
 if __name__ == "__main__":

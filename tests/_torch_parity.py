@@ -31,6 +31,22 @@ def jax_noise(sigma: float):
     return fn
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _jax_seeded_noise(key, batch, n, sigma):
+    # the noise draw of image_matching_tpu CkksContext._encrypt_seeded_dev:
+    # one normal draw from the key, no split
+    return jnp.round(jax.random.normal(key, (batch, n), dtype=jnp.float32) * sigma
+                     ).astype(jnp.int32)
+
+
+def jax_seeded_noise(sigma: float):
+    """Seeded-noise callable for the port's CkksContext that reproduces the
+    JAX package's seeded-encryption noise for the same numpy-drawn seed."""
+    def fn(seed, batch, n):
+        return np.asarray(_jax_seeded_noise(jax.random.key(int(seed)), batch, n, float(sigma)))
+    return fn
+
+
 def u32(x) -> np.ndarray:
     """Residues of either package as a uint32 numpy array."""
     if hasattr(x, "detach"):

@@ -16,11 +16,12 @@ import torch
 from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth, root_of_unity
 from image_matching_tpu.matching.config import MatchConfig
 from image_matching_tpu.utils import io as dio
-from image_matching_tpu_torch.ckks.context import CkksContext, fbc_plain, ks_mac_plain
+from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_mac_plain,
+                                                   seeded_c0_plain, seeded_pre_plain)
 from image_matching_tpu_torch.matching import senders
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
-from image_matching_tpu_torch.ops import ntt
+from image_matching_tpu_torch.ops import ntt, prng
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +114,86 @@ def test_ks_mac_kernel_matches_plain():
             assert torch.equal(got, ks_mac_plain(d, k, l, ctx.Lq, q, rinv, p))
 
 
+@pytest.mark.parametrize("n,B,l", [(512, 3, None), (512, 2, 5), (32768, 4, None), (32768, 2, 3)])
+def test_seeded_kernels_match_plain(n, B, l):
+    """K5 (c1 expansion, into a plain and a strided output) and both passes
+    of K6 (seeded encryption) against their plain versions, at the full
+    limb count and below it, with seed and group >= 2^31."""
+    dev = _device()
+    p = SchemeParams.create(ring_dim=n, mult_depth=11, security="none")
+    ctx = CkksContext(p, seed=1, device=dev)
+    l = l or ctx.Lq
+    seed, group = 2 ** 31 + 5, 2 ** 32 - 3
+    c1 = _launched("expand_c1", lambda: ctx.expand_c1(seed, group, B, l))
+    assert torch.equal(c1, prng.uniform_residues_plain(seed, group, (B, l, n), ctx.q32, ctx.r1_32))
+    stack = torch.zeros((B, 2, l, n), dtype=torch.int32, device=dev)
+    _launched("expand_c1", lambda: ctx.expand_c1(seed, group, B, l, out=stack[:, 1]))
+    assert torch.equal(stack[:, 1], c1) and not stack[:, 0].any()
+
+    rng = np.random.default_rng(5)
+    hi, lo = (torch.from_numpy(a.view(np.int32)).to(dev) for a in ctx.split_coeffs(
+        rng.integers(-(2 ** 45), 2 ** 45, size=(B, n))))
+    e = torch.from_numpy(rng.integers(-30, 31, size=(B, n)).astype(np.int32)).to(dev)
+    x = _launched("seeded_pre", lambda: ctx._seeded_pre(hi, lo, e, l))
+    assert torch.equal(x, seeded_pre_plain(ctx, hi, lo, e, l))
+    x = ctx.plan.fwd(x, ctx.q_limbs(l))
+    want = seeded_c0_plain(ctx, x, seed, group)
+    assert torch.equal(_launched("seeded_c0", lambda: ctx._seeded_c0(x, seed, group)), want)
+
+
+def _numpy_noise(params):
+    def noise(seed, batch, n):
+        rng = np.random.default_rng(seed)
+        v = rng.integers(-1, 2, size=(batch, n))
+        e = np.rint(rng.normal(0.0, params.sigma, size=(2, batch, n))).astype(np.int64)
+        return v, e[0], e[1]
+
+    def seeded_noise(seed, batch, n):
+        return np.rint(np.random.default_rng(seed).normal(0.0, params.sigma, size=(batch, n)))
+
+    return dict(noise=noise, seeded_noise=seeded_noise)
+
+
+@pytest.mark.parametrize("tier", ["pinned", "resident"])
+def test_streamed_slice_on_card_matches_cpu(tier):
+    """Streamed HyDia (2 groups) on the card equals the CPU (plain) run bit
+    for bit: the store, membership and index, with every group in pinned
+    host memory (prefetch on a side stream) or all resident.  engine="auto"
+    never takes the host C++ engine; every kernel runs on the card and none
+    on the CPU."""
+    dev = _device()
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(300, 64, seed=1)
+    outs = {}
+    for d in ("cpu", dev):
+        ctx = CkksContext(params, seed=7, device=d, **_numpy_noise(params))
+        ctx.encrypt_seeded_batch_host = None  # auto must not reach the C++ engine
+        budget = 0 if d == "cpu" or tier == "pinned" else None
+        kernels.reset_counts()
+        proto = MatchingProtocol.setup(5, db, cfg, ctx=ctx, streamed=True, resident_budget=budget)
+        qcts = proto.encrypt_query(query)
+        mem = proto.membership(qcts)
+        idx = proto.index(qcts)
+        outs[str(d)] = (proto, mem, idx, kernels.counts())
+    (pc, mc, ic, cc), (pg, mg, ig, cg) = outs["cpu"], outs[str(dev)]
+    store = pg.sender.store
+    if tier == "pinned":
+        assert store.resident_count() == 0 and all(g.is_pinned() for g in store.groups)
+    else:
+        assert store.host_count() == 0 and all(g.is_cuda for g in store.groups)
+    for a, b in zip(pc.sender.store.groups, store.groups):
+        assert torch.equal(a, b.cpu())
+    assert all(v == 0 for v in cc.values())
+    assert all(v > 0 for v in cg.values()), cg
+    assert torch.equal(mc.data, mg.data.cpu())
+    for a, b in zip(ic, ig):
+        assert torch.equal(a.data, b.data.cpu())
+    assert pg.decrypt_membership(mg) is True
+    assert pg.decrypt_index(ig) == [0]
+
+
 def test_launch_error_raises():
     """A launch the kernel refuses (more source limbs than it holds)
     raises instead of returning garbage."""
@@ -150,7 +231,8 @@ def test_slice_on_card_matches_cpu():
         outs[str(d)] = (mem, idx, proto, kernels.counts())
     (mc, ic, _, cc), (mg, ig, pg, cg) = outs["cpu"], outs[str(dev)]
     assert all(v == 0 for v in cc.values())
-    assert all(v > 0 for v in cg.values()), cg
+    # the in-memory DB runs K1-K4; the seeded kernels belong to the streamed store
+    assert all(cg[k] > 0 for k in ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac")), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())

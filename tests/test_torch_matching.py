@@ -173,5 +173,6 @@ def test_unported_approaches_raise(approach):
 
 
 def test_streamed_store_raises():
-    with pytest.raises(NotImplementedError, match="A6"):
-        MatchingProtocol.setup(5, np.ones((4, DIM)), CFG, params=PARAMS, streamed=True)
+    """The streamed store is ported for approach 5; HERS streaming is not."""
+    with pytest.raises(NotImplementedError, match="A8"):
+        MatchingProtocol.setup(4, np.ones((4, DIM)), CFG, params=PARAMS, streamed=True)
