@@ -9,27 +9,34 @@ line is printed):
   1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
      print the time;
   2. run each kernel (NTT fwd/inv, ct_dot, fast base conversion, keyswitch
-     MAC, c1 expansion, both passes of seeded encryption) on the card at
-     the shapes of the main path and require bit-exact equality with its
-     plain torch version on the same inputs; print both times (CUDA
-     events);
+     MAC, c1 expansion, both passes of seeded encryption, and the fused
+     operations built on K7-K10: rescale, mod-down, digit decomposition,
+     tensor product, decryption, public-key encryption) on the card at the
+     shapes of the main path and require bit-exact equality with its plain
+     torch version on the same inputs; print both times (CUDA events);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
      index, decrypt; require membership True, the index set equal to the
      plaintext set cosine >= 0.44 (which holds the planted vector 0), and
      decrypted scores within 1e-4 of the plaintext cosine;
-  4. require that K1-K4 were launched during phase 3;
-  5. the streamed, seed-compressed store at 2^20 vectors (64 groups) with
-     the device-memory budget derived on the card: setup (split into
-     keygen, enrollment, rotation keys), membership and index (a first
-     call, then three repetitions each), the same decisions and score
-     parity over all 2^20 vectors; resident and pinned group counts, peak
-     device memory; every kernel launched;
+  4. require that every kernel but the seeded ones (K5, K6) was launched
+     during phase 3;
+  5. the streamed, seed-compressed HyDia store at 2^20 vectors (64
+     groups) with the device-memory budget derived on the card: setup
+     (split into keygen, enrollment, rotation keys), membership and index
+     (a first call, then three repetitions each), the same decisions and
+     score parity over all 2^20 vectors; resident and pinned group counts,
+     peak device memory; every kernel launched;
   6. 2^17 vectors (8 groups) with resident_budget=0, so every group
      crosses PCIe on every query: the same decisions, the per-group copy
      and compute times, and a membership ciphertext bit-equal to the same
-     store served all resident.
+     store served all resident;
+  7. HERS (approach 4) in memory at 2^16 (4 matrices of 512 feature
+     ciphertexts, a 512-ciphertext query), as phase 3, every kernel but
+     K5/K6 launched;
+  8. the streamed HERS store at 2^20 (64 groups), as phase 5, every
+     kernel launched.
 The last lines are the card's name and power limit, one JSON line of
 per-kernel results, and the JSON result line.
 """
@@ -43,12 +50,13 @@ import time
 import numpy as np
 import torch
 
-NVEC = 1 << 16          # in-memory phase
-NVEC_STREAM = 1 << 20   # streamed phase: 64 groups of 16384 vectors
+NVEC = 1 << 16          # in-memory phases
+NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
 NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
 DIM = 512
 SEED = 0
-IN_MEMORY_KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac")
+SEEDED_KERNELS = ("expand_c1", "seeded_pre", "seeded_c0")  # the streamed store's
+APPROACH = {4: "HERS", 5: "HyDia"}
 T0 = time.perf_counter()
 
 
@@ -173,7 +181,68 @@ def check_kernels(ctx, device):
     record("seeded_c0", label, ctx._seeded_c0(xs, seed, grp), want,
            lambda: ctx._seeded_c0(xs, seed, grp),
            lambda: seeded_c0_plain(ctx, x, seed, grp))
+    del x, xs, want, hi, lo, e
+    check_fused(ctx, device, gen, record, rows)
     return rows
+
+
+def check_fused(ctx, device, gen, record, rows):
+    """Phase 2, K7-K10: each fused operation (its kernel passes with the
+    K1 launches between them) against its plain version, at HERS's shapes
+    first (a relinearization's R = 1, the query's B = 512), then at
+    HyDia's batched key switches (R = 15 giant, 31 hoisted rotations)."""
+    from image_matching_tpu_torch.ckks import context as tc
+
+    P, n, Lq = ctx.all_primes, ctx.n, ctx.Lq
+    ext = ctx.ext_limbs(Lq)
+    qp = P[:Lq]
+    # K7: rescale (K1 inverse of the top limb, lift, K1, sub-scale)
+    x = rand_residues((2, Lq, n), qp, gen, device)
+    record("rescale_lift", "rescale 2x14 limbs", ctx.rescale(tc.Ciphertext(x, 1.0)).data,
+           tc.rescale_plain(ctx, x), lambda: ctx.rescale(tc.Ciphertext(x, 1.0)),
+           lambda: tc.rescale_plain(ctx, x))
+    # K7: mod-down (K1 inverse of the specials, centred K3, K1, sub-scale),
+    # with a relinearization's addend, then a rotation's gathered c0
+    perms = torch.from_numpy(np.stack(
+        [ctx.plan.auto_perm(ctx.rotation_galois(r)) for r in range(1, 32)])).to(device)
+    for R, add, p in [(1, 2, None), (31, 1, perms)]:
+        comp = rand_residues((R, 2, len(ext), n), [P[i] for i in ext], gen, device)
+        a = rand_residues((1 if p is not None else R, add, Lq, n), qp, gen, device)
+        record("sub_scale", f"mod-down R={R}x2x20 limbs", ctx._moddown(comp, Lq, a, p),
+               tc.moddown_plain(ctx, comp, Lq, a, p), lambda: ctx._moddown(comp, Lq, a, p),
+               lambda: tc.moddown_plain(ctx, comp, Lq, a, p))
+    del comp, a
+    # K8: decomposition (K1 inverse with the gather, K8, K1 over the stack)
+    for R, p in [(1, None), (15, perms[:15])]:
+        poly = rand_residues((R, Lq, n), qp, gen, device)
+        record("decompose", f"decompose R={R}x14 limbs", ctx._decompose_extended(poly, Lq, p),
+               tc.decompose_plain(ctx, poly, Lq, p),
+               lambda: ctx._decompose_extended(poly, Lq, p),
+               lambda: tc.decompose_plain(ctx, poly, Lq, p))
+    del poly
+    # K9: tensor product and decryption (MAC + REDC, K1)
+    y = rand_residues((2, Lq, n), qp, gen, device)
+    record("tensor", "2x14 limbs pair", ctx._tensor(x, y), tc.tensor_plain(ctx, x, y),
+           lambda: ctx._tensor(x, y), lambda: tc.tensor_plain(ctx, x, y))
+    record("tensor", "square 2x14 limbs", ctx._tensor(x, None), tc.tensor_plain(ctx, x),
+           lambda: ctx._tensor(x, None), lambda: tc.tensor_plain(ctx, x))
+    d = rand_residues((3, Lq, n), qp, gen, device)
+    record("decrypt_mac", "decrypt 3x14 limbs", ctx._decrypt_impl(d), tc.decrypt_plain(ctx, d),
+           lambda: ctx._decrypt_impl(d), lambda: tc.decrypt_plain(ctx, d))
+    del x, y, d
+    # K10: public-key encryption of the HERS query, B = 512 (pre, K1, MAC)
+    B = DIM
+    m = rand_residues((B, Lq, n), qp, gen, device)
+    v = torch.randint(-1, 2, (B, n), generator=gen, device=device)
+    e0, e1 = (torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).long()
+              for _ in range(2))
+    want = tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq)
+    torch.cuda.empty_cache()
+    record("pk_pre", f"encrypt B={B}x14 limbs", ctx._encrypt_impl(m, v, e0, e1, Lq), want,
+           lambda: ctx._encrypt_impl(m, v, e0, e1, Lq),
+           lambda: tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq))
+    rows["pk_mac"] = dict(rows["pk_pre"])  # one operation, two passes
+    torch.cuda.empty_cache()
 
 
 def timed(times, label, fn):
@@ -198,7 +267,8 @@ def setup_split(times, fn):
     from image_matching_tpu_torch.ckks.context import CkksContext
     from image_matching_tpu_torch.matching import streaming
 
-    enroll, gen = streaming.enroll_diag_streamed, CkksContext.gen_rotation_keys
+    enroll, henroll = streaming.enroll_diag_streamed, streaming.enroll_hers_streamed
+    gen = CkksContext.gen_rotation_keys
     times.update(enroll_s=0.0, rotation_keys_s=0.0)
 
     def wrap(key, f):
@@ -212,11 +282,13 @@ def setup_split(times, fn):
         return run
 
     streaming.enroll_diag_streamed = wrap("enroll_s", enroll)
+    streaming.enroll_hers_streamed = wrap("enroll_s", henroll)
     CkksContext.gen_rotation_keys = wrap("rotation_keys_s", gen)
     try:
         proto = timed(times, "setup_s", fn)
     finally:
-        streaming.enroll_diag_streamed, CkksContext.gen_rotation_keys = enroll, gen
+        streaming.enroll_diag_streamed, streaming.enroll_hers_streamed = enroll, henroll
+        CkksContext.gen_rotation_keys = gen
     # the rest of setup is the context's construction: its key generation
     times["keygen_s"] = times["setup_s"] - times["enroll_s"] - times["rotation_keys_s"]
     return proto
@@ -230,46 +302,48 @@ def queries(proto, qcts, times):
     return mem, idx
 
 
-def streamed_phase(cfg, device, smi):
-    """Phase 5: the streamed, seed-compressed store at 2^20 with the
-    derived device-memory budget, through the user entry points."""
+def streamed_phase(approach, cfg, device, smi):
+    """Phases 5 and 8: the streamed, seed-compressed store of `approach`
+    at 2^20 with the derived device-memory budget, through the user entry
+    points.  The kernel counts cover setup, the query's encryption, the
+    queries and their decryption."""
     from image_matching_tpu.utils.io import gen_dataset
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
 
+    name = f"{APPROACH[approach]} streamed 2^{NVEC_STREAM.bit_length() - 1}"
     times = {}
     query, db = timed(times, "gen_dataset_s", lambda: gen_dataset(NVEC_STREAM, DIM, seed=SEED))
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     proto = setup_split(times, lambda: MatchingProtocol.setup(
-        5, db, cfg, seed=SEED, device=device, streamed=True))
+        approach, db, cfg, seed=SEED, device=device, streamed=True))
     qcts = timed(times, "encrypt_query_s", lambda: proto.encrypt_query(query))
     mem, idx = queries(proto, qcts, times)
+    member = proto.decrypt_membership(mem)
+    found = sorted(proto.decrypt_index(idx))
     launches = kernels.counts()
     store = proto.sender.store
     times.update(groups=store.num_groups, resident_groups=store.resident_count(),
                  pinned_groups=store.host_count(),
                  store_gb=store.num_groups * store.group_bytes() / 1e9,
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log(f"streamed 2^{NVEC_STREAM.bit_length() - 1} on {smi}: " + json.dumps(times)
-        + " launches " + json.dumps(launches))
+    log(f"{name} on {smi}: " + json.dumps(times) + " launches " + json.dumps(launches))
 
-    member = proto.decrypt_membership(mem)
-    found = sorted(proto.decrypt_index(idx))
     sims, expect = expected_matches(query, db, cfg.match_threshold)
-    log(f"streamed membership {member}; index {found[:10]} ({len(found)}); "
+    log(f"{name} membership {member}; index {found[:10]} ({len(found)}); "
         f"expected {expect[:10]}")
-    assert member is True, "streamed membership must be True (vector 0 is planted)"
-    assert found == expect and 0 in found, "streamed index differs from the plaintext set"
+    assert member is True, f"{name}: membership must be True (vector 0 is planted)"
+    assert found == expect and 0 in found, f"{name}: index differs from the plaintext set"
     t = {}
     scores = timed(t, "similarity_s", lambda: proto.sender.compute_similarity(qcts))
     vals = proto.receiver.decrypt_scores(scores)[:NVEC_STREAM]
     assert vals.shape == sims.shape and np.all(np.isfinite(vals))
     err = float(np.abs(vals - sims).max())
-    log(f"streamed score parity: max |decrypted - cosine| = {err:.3e} over {NVEC_STREAM} "
+    log(f"{name} score parity: max |decrypted - cosine| = {err:.3e} over {NVEC_STREAM} "
         f"vectors; similarity alone {t['similarity_s']:.4f} s "
         f"({t['similarity_s'] / store.num_groups * 1e3:.3f} ms per group)")
-    assert err <= 1e-4, "streamed score parity above the 1e-4 bar"
+    assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
     return launches
 
 
@@ -291,6 +365,8 @@ def pinned_phase(cfg, device, smi):
     assert store.resident_count() == 0 and all(g.is_pinned() for g in store.groups)
     qcts = proto.encrypt_query(query)
     mem, idx = queries(proto, qcts, times)
+    member = proto.decrypt_membership(mem)
+    found = sorted(proto.decrypt_index(idx))
     launches = kernels.counts()
     sim_pinned = [timed(times, f"similarity_pinned_{r}_s",
                         lambda: proto.sender.compute_similarity(qcts)) for r in (1, 2)][-1]
@@ -321,8 +397,6 @@ def pinned_phase(cfg, device, smi):
         "group is near the larger of copy and resident compute, not their sum)")
 
     sims, expect = expected_matches(query, db, cfg.match_threshold)
-    member = proto.decrypt_membership(mem)
-    found = sorted(proto.decrypt_index(idx))
     log(f"pinned membership {member}; index {found[:10]}; expected {expect[:10]}")
     assert member is True and found == expect and 0 in found, "pinned decisions differ"
     assert torch.equal(mem.data, mem_res.data), \
@@ -339,50 +413,63 @@ def require_launched(launches, names, path):
     assert not missing, f"kernels never launched on the {path} path: {missing}"
 
 
-def in_memory_phase(cfg, params, device, smi):
-    """Phase 3: HyDia with an in-memory encrypted DB of NVEC vectors."""
+def in_memory_phase(approach, cfg, device, smi):
+    """Phases 3 and 7: `approach` with an in-memory encrypted DB of NVEC
+    vectors.  The kernel counts cover setup, the query's encryption, the
+    queries and their decryption."""
     from image_matching_tpu.utils.io import gen_dataset
     from image_matching_tpu_torch.matching import enrollers
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
 
+    name = f"{APPROACH[approach]} in-memory 2^{NVEC.bit_length() - 1}"
     query, db = gen_dataset(NVEC, DIM, seed=SEED)
     times = {}
     # time the enrollment inside setup: the protocol looks the enroller up
     # on its module at call time
-    enroll = enrollers.enroll_diag
+    attr = "enroll_hers" if approach == 4 else "enroll_diag"
+    enroll = getattr(enrollers, attr)
 
     def timed_enroll(*a, **k):
         return timed(times, "enroll_s", lambda: enroll(*a, **k))
 
-    enrollers.enroll_diag = timed_enroll
+    setattr(enrollers, attr, timed_enroll)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     try:
         proto = timed(times, "setup_s", lambda: MatchingProtocol.setup(
-            5, db, cfg, seed=SEED, device=device))
+            approach, db, cfg, seed=SEED, device=device))
     finally:
-        enrollers.enroll_diag = enroll
+        setattr(enrollers, attr, enroll)
     qcts = timed(times, "encrypt_query_s", lambda: proto.encrypt_query(query))
     mem = timed(times, "membership_s", lambda: proto.membership(qcts))
     idx = timed(times, "index_s", lambda: proto.index(qcts))
-    launches = kernels.counts()
-    times["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"in-memory 2^{NVEC.bit_length() - 1} on {smi}: " + json.dumps(times)
-        + " launches " + json.dumps(launches))
-
     member = proto.decrypt_membership(mem)
     found = sorted(proto.decrypt_index(idx))
+    launches = kernels.counts()
+    times["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{name} on {smi}: " + json.dumps(times) + " launches " + json.dumps(launches))
+
     sims, expect = expected_matches(query, db, cfg.match_threshold)
-    log(f"membership {member}; index {found[:10]} ({len(found)}); expected {expect[:10]}")
-    assert mem.data.shape == (2, mem.limbs, params.ring_dim)
-    assert member is True, "membership must be True (vector 0 is planted)"
-    assert found == expect and 0 in found, "index differs from the plaintext match set"
-    vals = proto.receiver.decrypt_scores(proto.sender.compute_similarity(qcts))[:NVEC]
+    log(f"{name} membership {member}; index {found[:10]} ({len(found)}); "
+        f"expected {expect[:10]}")
+    assert mem.data.shape == (2, mem.limbs, proto.ctx.n)
+    assert member is True, f"{name}: membership must be True (vector 0 is planted)"
+    assert found == expect and 0 in found, f"{name}: index differs from the plaintext set"
+    t = {}
+    scores = timed(t, "similarity_s", lambda: proto.sender.compute_similarity(qcts))
+    vals = proto.receiver.decrypt_scores(scores)[:NVEC]
     assert np.all(np.isfinite(vals))
     err = float(np.abs(vals - sims).max())
-    log(f"score parity: max |decrypted - cosine| = {err:.3e} over {NVEC} vectors")
-    assert err <= 1e-4, "score parity above the 1e-4 bar"
+    log(f"{name} score parity: max |decrypted - cosine| = {err:.3e} over {NVEC} vectors; "
+        f"similarity alone {t['similarity_s']:.4f} s")
+    assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
     return launches
+
+
+def free_device():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -413,43 +500,57 @@ def main():
 
     # phase 2: kernels against their plain versions at the main path's shapes
     cfg = MatchConfig()
-    params = SchemeParams.create(mult_depth=compute_required_depth(5, cfg.comp_depth))
+    depth = compute_required_depth(5, cfg.comp_depth)
+    assert compute_required_depth(4, cfg.comp_depth) == depth  # one parameter set serves both
+    params = SchemeParams.create(mult_depth=depth)
     log(f"params: ring {params.ring_dim}, {params.num_limbs} q limbs, "
         f"{params.num_special} special, dnum {params.dnum}")
     rows = check_kernels(CkksContext(params, seed=SEED + 1, device=device), device)
-    torch.cuda.empty_cache()
+    free_device()
+    in_memory = [k for k in kernels.KERNELS if k not in SEEDED_KERNELS]
 
-    # phase 3: the in-memory main path, through the user entry points
-    launches = {"in_memory": in_memory_phase(cfg, params, device, smi)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    # phase 4: the in-memory path went through K1-K4
-    require_launched(launches["in_memory"], IN_MEMORY_KERNELS, "in-memory")
-
-    # phase 5: the streamed store at 2^20, then phase 6: forced pinned
-    launches["streamed"] = streamed_phase(cfg, device, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    require_launched(launches["streamed"], kernels.KERNELS, "streamed 2^20")
-    launches["pinned"] = pinned_phase(cfg, device, smi)
-    require_launched(launches["pinned"], kernels.KERNELS, "forced-pinned 2^17")
+    # phases 3-4: HyDia in memory; 5: streamed at 2^20; 6: forced pinned
+    launches = {"hydia_in_memory": in_memory_phase(5, cfg, device, smi)}
+    free_device()
+    require_launched(launches["hydia_in_memory"], in_memory, "HyDia in-memory")
+    launches["hydia_streamed"] = streamed_phase(5, cfg, device, smi)
+    free_device()
+    require_launched(launches["hydia_streamed"], kernels.KERNELS, "HyDia streamed 2^20")
+    launches["hydia_pinned"] = pinned_phase(cfg, device, smi)
+    free_device()
+    require_launched(launches["hydia_pinned"], kernels.KERNELS, "HyDia forced-pinned 2^17")
+    # phases 7-8: HERS in memory at 2^16 and streamed at 2^20
+    launches["hers_in_memory"] = in_memory_phase(4, cfg, device, smi)
+    free_device()
+    require_launched(launches["hers_in_memory"], in_memory, "HERS in-memory")
+    launches["hers_streamed"] = streamed_phase(4, cfg, device, smi)
+    free_device()
+    require_launched(launches["hers_streamed"], kernels.KERNELS, "HERS streamed 2^20")
     assert "jax" not in sys.modules, "the port's smoke run imported jax"
 
     src = "image_matching_tpu_torch/csrc/"
+    ctx_py = "image_matching_tpu/ckks/context.py"
     meta = {
         "ntt_fwd": ("ntt.cu", "image_matching_tpu/ops/ntt.py:231"),
         "ntt_inv": ("ntt.cu", "image_matching_tpu/ops/ntt.py:260"),
         "ct_dot": ("ct_dot.cu", "image_matching_tpu/matching/senders.py:53"),
-        "fbc": ("basis_convert.cu", "image_matching_tpu/ckks/context.py:837"),
-        "ks_mac": ("keyswitch.cu", "image_matching_tpu/ckks/context.py:940"),
+        "fbc": ("basis_convert.cu", f"{ctx_py}:837"),
+        "ks_mac": ("keyswitch.cu", f"{ctx_py}:940"),
         "expand_c1": ("prng.cu", "image_matching_tpu/ops/prng.py:51"),
-        "seeded_pre": ("seeded_encrypt.cu", "image_matching_tpu/ckks/context.py:495"),
-        "seeded_c0": ("seeded_encrypt.cu", "image_matching_tpu/ckks/context.py:512"),
+        "seeded_pre": ("seeded_encrypt.cu", f"{ctx_py}:495"),
+        "seeded_c0": ("seeded_encrypt.cu", f"{ctx_py}:512"),
+        "rescale_lift": ("rescale.cu", f"{ctx_py}:768"),
+        "sub_scale": ("rescale.cu", f"{ctx_py}:890"),
+        "decompose": ("decompose.cu", f"{ctx_py}:859"),
+        "tensor": ("tensor.cu", f"{ctx_py}:734"),
+        "decrypt_mac": ("tensor.cu", f"{ctx_py}:609"),
+        "pk_pre": ("pk_encrypt.cu", f"{ctx_py}:420"),
+        "pk_mac": ("pk_encrypt.cu", f"{ctx_py}:420"),
     }
-    # launches: the streamed 2^20 run, this slice's main path, which runs
-    # every kernel; launches_by_path adds the other two driven paths
+    # launches: the streamed HERS run, this slice's main path, which runs
+    # every kernel; launches_by_path adds the other driven paths
     out = [{"name": k, "route": "cuda", "source": src + meta[k][0],
-            "replaces": meta[k][1], "launches": launches["streamed"][k],
+            "replaces": meta[k][1], "launches": launches["hers_streamed"][k],
             "launches_by_path": {p: c[k] for p, c in launches.items()},
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "shape": rows[k]["shape"]}

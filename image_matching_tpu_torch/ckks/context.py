@@ -11,12 +11,19 @@ packages hold identical keys for one seed.  Encryption noise comes from a
 turns into a ``jax.random`` key; a ``noise`` callable replaces it (the
 parity tests feed the JAX package's noise through it).
 
-Key switching is hybrid with ``dnum`` digits over the full RNS basis.  Its
-three hot steps are CUDA kernels for CUDA tensors: the NTT (K1, in
-``ops/ntt.py``), fast base conversion (K3, ``_fbc``) and the key
-multiply-accumulate with the fused automorphism gather (K4, ``_ks_mac``).
-Each has its plain torch version here, used for CPU tensors.  The JAX
-package's ``vmap``/``scan`` over rotations become an explicit leading
+Key switching is hybrid with ``dnum`` digits over the full RNS basis.  On
+CUDA tensors every step is a hand-written kernel: the NTT (K1, in
+``ops/ntt.py``, which also gathers a rotation's c1 through its
+automorphism on the way in), fast base conversion (K3, ``_fbc``, with the
+mod-down's centred form), the digit decomposition (K8,
+``_decompose_extended``), the key multiply-accumulate with the hoisted
+digits' gather (K4, ``_ks_mac``) and the division by P (K7, ``_moddown``),
+whose last pass also adds a rotation's gathered c0 or a relinearization's
+input.  Rescale is K1 and K7; the tensor product and decryption's MAC are
+K9; public-key encryption is K10 around K1.  Each has its plain torch
+version here (``fbc_plain``, ``rescale_plain``, ``moddown_plain``, ...),
+used for CPU tensors: there is no fallback from one to the other.  The
+JAX package's ``vmap``/``scan`` over rotations become an explicit leading
 batch axis or a Python loop.
 
 Seed-compressed (symmetric) encryption of streamed DB groups keeps only
@@ -42,7 +49,7 @@ from image_matching_tpu.ckks.params import SchemeParams, root_of_unity
 from ..ops import kernels
 from ..ops import modmath as mm
 from ..ops import prng
-from ..ops.ntt import NttPlan, host_ntt_fwd
+from ..ops.ntt import NttPlan, host_ntt_fwd, permute_rows
 
 R = mm.R
 
@@ -105,11 +112,16 @@ class FbcConsts:
     packed: torch.Tensor   # int32: qs, qnegs, t_std, inv_q, qd, qnegd, qg_r2, qhat
 
 
-def fbc_plain(x: torch.Tensor, c: FbcConsts) -> torch.Tensor:
+def fbc_plain(x: torch.Tensor, c: FbcConsts, pre: Optional[torch.Tensor] = None,
+              post: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain fast base conversion of coefficient-domain Montgomery residues
     [..., g, N] (source basis) -> [..., t, N] (target basis).  The float32
     sum runs in index order, one rounding per product and per sum, as
-    XLA's reduction does; torch.round rounds half to even like jnp.round."""
+    XLA's reduction does; torch.round rounds half to even like jnp.round.
+    The centred form (the mod-down) adds ``pre`` (int64 [g, 1]) to the
+    input and subtracts ``post`` (int64 [t, 1]) from the output."""
+    if pre is not None:
+        x = mm.mod_add(x, pre, c.qs)
     y = mm.mont_mul(x, c.t_std, c.qs, c.rinv_s)  # standard form
     yf = y.float()
     g = y.shape[-2]
@@ -122,7 +134,8 @@ def fbc_plain(x: torch.Tensor, c: FbcConsts) -> torch.Tensor:
         term = mm.mont_mul(y[..., i:i + 1, :], c.qhat[i][:, None], c.qd, c.rinv_d)
         out = term if out is None else mm.mod_add(out, term, c.qd)
     corr = mm.mont_mul(v[..., None, :], c.qg_r2, c.qd, c.rinv_d)
-    return mm.mod_sub(out, corr, c.qd)
+    out = mm.mod_sub(out, corr, c.qd)
+    return out if post is None else mm.mod_sub(out, post, c.qd)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +198,138 @@ def seeded_c0_plain(ctx: "CkksContext", x: torch.Tensor, seed: int,
     return mm.mod_sub(x, mm.mont_mul(c1, ctx.s_eval[:l], q, rinv), q)
 
 
+# ---------------------------------------------------------------------------
+# K7-K10: plain versions of the fused passes.  Each takes what its kernel
+# chain takes and runs the JAX package's arithmetic in plain torch (plain
+# NTTs included), on any device: the context uses them for CPU tensors,
+# and chip_smoke.py holds the kernels against them on the card.
+# ---------------------------------------------------------------------------
+
+
+def rescale_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
+    """Divide [k, l, N] by the top prime q_{l-1} -> [k, l-1, N] (K7 with
+    K1 around its lift pass)."""
+    l = data.shape[-2]
+    qt = int(ctx.all_primes[l - 1])
+    lim_rest = ctx.q_limbs(l - 1)
+    q, rinv = ctx._qrow(lim_rest)
+    r2 = ctx.r2_64[: l - 1, None]
+    # top limb -> standard-form coefficients < qt
+    top_c = ctx.plan.inv_plain(data[:, l - 1 : l, :], (l - 1,))
+    top_std = top_c.long() * mm.host_rinv(qt) % qt  # [k, 1, N]
+    # centered transfer mod each remaining prime
+    pos = mm.reduce_small(top_std, q)
+    negv = mm.mod_neg(mm.reduce_small(qt - top_std, q), q)
+    t_std = torch.where(top_std <= qt // 2, pos, negv)
+    t_eval = ctx.plan.fwd_plain(mm.mont_mul(t_std, r2, q, rinv), lim_rest)
+    diff = mm.mod_sub(data[:, : l - 1, :], t_eval, q)
+    return mm.mont_mul(diff, ctx._qtinv(l)[0], q, rinv)
+
+
+def add_rotated_plain(out: torch.Tensor, add: torch.Tensor,
+                      perms: Optional[torch.Tensor], q: torch.Tensor) -> torch.Tensor:
+    """out [R, 2, l, N] with add [Ra, k, l, N] (Ra in {1, R}, k in {1, 2})
+    added to its first k components, add's coefficients gathered through
+    perms [R, N] when given: c0 o sigma + d0 of a rotation (k = 1), c + d
+    of a relinearization (k = 2)."""
+    R, k = out.shape[0], add.shape[1]
+    a = add.expand(R, *add.shape[1:])
+    if perms is not None:
+        idx = perms.long()[:, None, None, :].expand(R, k, *add.shape[2:])
+        a = torch.gather(a, -1, idx)
+    head = mm.mod_add(a, out[:, :k], q)
+    return head if k == out.shape[1] else torch.cat([head, out[:, k:]], dim=1)
+
+
+def moddown_plain(ctx: "CkksContext", comp: torch.Tensor, l: int,
+                  add: Optional[torch.Tensor] = None,
+                  perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[..., l + S, N] evaluation form over Q_l + P -> [..., l, N] over
+    Q_l, dividing by P with the centred correction (K1, centred K3, K1,
+    K7); with ``add`` (see ``add_rotated_plain``; comp then [R, 2, l + S,
+    N]) the rotated c0 or the relinearized input is added."""
+    sp = ctx.sp_limbs()
+    lim = ctx.q_limbs(l)
+    cp = ctx.plan.inv_plain(comp[..., l:, :], sp)
+    pre, post = ctx._centre_shift(l)
+    conv = fbc_plain(cp, ctx._fbc_consts(sp, lim), pre[0], post[0])
+    qd, rinvd = ctx._qrow(lim)
+    diff = mm.mod_sub(comp[..., :l, :], ctx.plan.fwd_plain(conv, lim), qd)
+    out = mm.mont_mul(diff, ctx._pinv(l)[0], qd, rinvd)
+    return out if add is None else add_rotated_plain(out, add, perms, qd)
+
+
+def decompose_plain(ctx: "CkksContext", poly_eval: torch.Tensor, l: int,
+                    perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Digit-decompose evaluation-form polys [..., l, N] (gathered through
+    the automorphism ``perms`` first, see ops.ntt.permute_rows) and extend
+    every digit to Q_l + P -> [..., ndig, l + S, N] evaluation Montgomery
+    (K1 with the gather, K8, K1)."""
+    coeff = ctx.plan.inv_plain(permute_rows(poly_eval, perms), ctx.q_limbs(l))
+    ext = ctx.ext_limbs(l)
+    digs = []
+    for g, other in ctx._digits(l):
+        a, b = g[0], g[-1] + 1
+        x = coeff[..., a:b, :]
+        conv = fbc_plain(x, ctx._fbc_consts(g, other))
+        # ext order: conv rows below the digit, the digit's own rows
+        # copied exactly, then the remaining conv rows
+        digs.append(torch.cat([conv[..., :a, :], x, conv[..., a:, :]], dim=-2))
+    return ctx.plan.fwd_plain(torch.stack(digs, dim=-3), ext)
+
+
+def tensor_plain(ctx: "CkksContext", x: torch.Tensor,
+                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Tensor product of ciphertext data [2, lx, N] and [2, ly, N] ->
+    [3, l, N], l = min(lx, ly) (K9); the square of x when y is None."""
+    l = x.shape[-2] if y is None else min(x.shape[-2], y.shape[-2])
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
+    x0, x1 = x[0, :l], x[1, :l]
+    if y is None:
+        m = mm.mont_mul(x0, x1, q, rinv)
+        return torch.stack([mm.mont_mul(x0, x0, q, rinv), mm.mod_add(m, m, q),
+                            mm.mont_mul(x1, x1, q, rinv)])
+    y0, y1 = y[0, :l], y[1, :l]
+    c0 = mm.mont_mul(x0, y0, q, rinv)
+    c1 = mm.mod_add(mm.mont_mul(x0, y1, q, rinv), mm.mont_mul(x1, y0, q, rinv), q)
+    c2 = mm.mont_mul(x1, y1, q, rinv)
+    return torch.stack([c0, c1, c2])
+
+
+def decrypt_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
+    """[..., k, l, N] -> standard-form coefficient residues [..., l, N]
+    (K9's MAC, then K1)."""
+    k, l = data.shape[-3], data.shape[-2]
+    lim = ctx.q_limbs(l)
+    q, rinv = ctx._qrow(lim)
+    s = ctx.s_eval[:l]
+    m = data[..., 0, :, :]
+    spow = s
+    for i in range(1, k):
+        m = mm.mod_add(m, mm.mont_mul(data[..., i, :, :], spow, q, rinv), q)
+        if i + 1 < k:
+            spow = mm.mont_mul(spow, s, q, rinv)
+    coeff_mont = ctx.plan.inv_plain(m, lim)
+    return mm.mont_mul(coeff_mont, torch.ones_like(q), q, rinv)  # REDC
+
+
+def pk_encrypt_plain(ctx: "CkksContext", m_rns: torch.Tensor, v: torch.Tensor,
+                     e0: torch.Tensor, e1: torch.Tensor, l: int) -> torch.Tensor:
+    """Public-key encryption of standard-form message residues [B, l, N]
+    with small signed noise v, e0, e1 [B, N] -> [B, 2, l, N] (K10 around
+    K1): c0 = pk_b v + e0 + m, c1 = pk_a v + e1."""
+    lim = ctx.q_limbs(l)
+    q, rinv = ctx._qrow(lim)
+    r2 = ctx.r2_64[:l, None]
+    small = torch.stack([v, e0, e1]).long()[:, :, None, :]  # [3, B, 1, n]
+    small = torch.where(small < 0, q + small, small)         # [3, B, l, n]
+    std = torch.cat([m_rns[None].long(), small])              # [4, B, l, n]
+    m, vv, ee0, ee1 = ctx.plan.fwd_plain(mm.mont_mul(std, r2, q, rinv), lim)
+    c0 = mm.mod_add(mm.mod_add(mm.mont_mul(ctx.pk_b[:l], vv, q, rinv), ee0, q), m, q)
+    c1 = mm.mod_add(mm.mont_mul(ctx.pk_a[:l], vv, q, rinv), ee1, q)
+    return torch.stack([c0, c1], dim=-3)
+
+
 class CkksContext:
     """Scheme context + evaluator.  One instance per parameter set, with
     its tables and keys on ``device``."""
@@ -243,7 +388,6 @@ class CkksContext:
         self._qrow_cache: Dict = {}
         self._const_cache: Dict = {}
         self._fbc_cache: Dict = {}
-        self._perm_cache: Dict = {}
         self._keygen()
         # rotation keys live in stacked sets (perms [R, N], keys
         # [R, dnum, 2, Ltot, N]) so groups of rotations run as one batched
@@ -265,19 +409,51 @@ class CkksContext:
             self._qrow_cache[key] = (self.q64[idx][:, None], self.rinv64[idx][:, None])
         return self._qrow_cache[key]
 
-    def _limb_consts(self, name, limbs: Sequence[int], fn) -> torch.Tensor:
-        """Cached int64 [l, 1] tensor of fn(q_i) over the given limbs."""
-        key = (name, tuple(limbs))
-        if key not in self._const_cache:
-            vals = [fn(self.all_primes[i]) for i in limbs]
-            self._const_cache[key] = torch.tensor(
-                vals, dtype=torch.int64, device=self.device)[:, None]
-        return self._const_cache[key]
-
     def _mont_const(self, value: int, limbs: Sequence[int]) -> torch.Tensor:
         """Montgomery form of an integer constant per limb, int64 [l, 1]."""
         v = int(value)
-        return self._limb_consts(("mont", v), limbs, lambda q: v % q * (R % q) % q)
+        return self._limb_pair(("mont", v), limbs, lambda q: v % q * (R % q) % q)[0]
+
+    def _limb_pair(self, name, limbs: Sequence[int], fn) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fn(q_i) over the given limbs as (int64 [l, 1] for the plain
+        versions, int32 [l] for the kernels)."""
+        key = ("pair", name, tuple(limbs))
+        if key not in self._const_cache:
+            vals = np.array([fn(self.all_primes[i]) for i in limbs], dtype=np.uint32)
+            self._const_cache[key] = (
+                torch.tensor(vals.astype(np.int64), device=self.device)[:, None],
+                mm.to_tensor(vals, self.device))
+        return self._const_cache[key]
+
+    def _qtinv(self, l: int):
+        """q_{l-1}^{-1} in Montgomery form over limbs 0..l-2 (rescale)."""
+        qt = int(self.all_primes[l - 1])
+        return self._limb_pair(("qtinv", qt), self.q_limbs(l - 1),
+                               lambda p: pow(qt, -1, p) * (R % p) % p)
+
+    def _pinv(self, l: int):
+        """P^{-1} in Montgomery form over limbs 0..l-1 (mod-down)."""
+        P = math.prod(self.params.sp_primes)
+        return self._limb_pair("pinv", self.q_limbs(l), lambda p: pow(P % p, -1, p) * (R % p) % p)
+
+    def _centre_shift(self, l: int):
+        """(pre, post) of the centred mod-down conversion: P/2 in
+        Montgomery form over the special limbs and over limbs 0..l-1."""
+        half = math.prod(self.params.sp_primes) // 2
+        fn = lambda q: half % q * (R % q) % q  # noqa: E731
+        return (self._limb_pair("half_p", self.sp_limbs(), fn),
+                self._limb_pair("half_p", self.q_limbs(l), fn))
+
+    def _digits(self, l: int) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+        """(digit limbs, other extended limbs) of every digit live at l:
+        digits whose limbs all lie at or above l are dropped."""
+        ext = self.ext_limbs(l)
+        out = []
+        for grp in self.groups:
+            g = tuple(i for i in grp if i < l)
+            if g:
+                out.append((g, tuple(i for i in ext if i not in g)))
+        return out
 
     @property
     def fresh_scale(self) -> float:
@@ -479,17 +655,40 @@ class CkksContext:
         v, e0, e1 = self._fresh_noise(seed, B)
         return self._encrypt_impl(m_rns, v, e0, e1, l)
 
-    def _encrypt_impl(self, m_rns, v, e0, e1, l):
+    _PK_CHUNK = 128  # ciphertexts per K10 pass: bounds the [3, B, l, N] transient
+
+    def _encrypt_impl(self, m_rns: torch.Tensor, v: torch.Tensor, e0: torch.Tensor,
+                      e1: torch.Tensor, l: int) -> torch.Tensor:
+        """Public-key encryption, [B, l, N] standard residues and [B, N]
+        int64 noise -> [B, 2, l, N]: K10's pre pass, K1, K10's MAC pass on
+        CUDA (in chunks of ``_PK_CHUNK`` ciphertexts, one noise draw for the
+        whole batch), ``pk_encrypt_plain`` on the CPU."""
+        if not m_rns.is_cuda:
+            return pk_encrypt_plain(self, m_rns, v, e0, e1, l)
+        B, n = m_rns.shape[0], self.n
+        if m_rns.shape != (B, l, n) or any(t.shape != (B, n) for t in (v, e0, e1)):
+            raise ValueError(f"encrypt: message {tuple(m_rns.shape)} and noise "
+                             f"{tuple(v.shape)} for l={l}, N={n}")
+        m_rns, v, e0, e1 = (t.contiguous() for t in (m_rns, v, e0, e1))
+        kernels.check_cuda("pk_encrypt", m_rns, self.pk_b, self.pk_a, self.q32, self.qneg32,
+                           self.r2_32)
+        kernels.check_cuda("pk_encrypt", v, e0, e1, dtype=torch.int64)
+        if v.device != m_rns.device:
+            raise ValueError("pk_encrypt: message and noise on different devices")
         lim = self.q_limbs(l)
-        q, rinv = self._qrow(lim)
-        r2 = self.r2_64[:l, None]
-        small = torch.stack([v, e0, e1]).long()[:, :, None, :]  # [3, B, 1, n]
-        small = torch.where(small < 0, q + small, small)         # [3, B, l, n]
-        std = torch.cat([m_rns[None].long(), small])              # [4, B, l, n]
-        m, vv, ee0, ee1 = self.plan.fwd(mm.mont_mul(std, r2, q, rinv), lim)
-        c0 = mm.mod_add(mm.mod_add(mm.mont_mul(self.pk_b[:l], vv, q, rinv), ee0, q), m, q)
-        c1 = mm.mod_add(mm.mont_mul(self.pk_a[:l], vv, q, rinv), ee1, q)
-        return torch.stack([c0, c1], dim=-3)
+        out = torch.empty((B, 2, l, n), dtype=torch.int32, device=m_rns.device)
+        for i in range(0, B, self._PK_CHUNK):
+            b = min(self._PK_CHUNK, B - i)
+            x = torch.empty((3, b, l, n), dtype=torch.int32, device=m_rns.device)
+            kernels.launch("imtpu_pk_pre", "pk_pre", kernels.ptr(x), kernels.ptr(m_rns[i]),
+                           kernels.ptr(v[i]), kernels.ptr(e0[i]), kernels.ptr(e1[i]),
+                           kernels.ptr(self.q32), kernels.ptr(self.qneg32),
+                           kernels.ptr(self.r2_32), b, l, n)
+            x = self.plan.fwd(x, lim)
+            kernels.launch("imtpu_pk_mac", "pk_mac", kernels.ptr(out[i]), kernels.ptr(x),
+                           kernels.ptr(self.pk_b), kernels.ptr(self.pk_a),
+                           kernels.ptr(self.q32), kernels.ptr(self.qneg32), b, l, n)
+        return out
 
     def encrypt(self, values: np.ndarray, limbs: Optional[int] = None,
                 scale: Optional[float] = None) -> Ciphertext:
@@ -648,19 +847,25 @@ class CkksContext:
         return torch.from_numpy(c0.view(np.int32))
 
     def _decrypt_impl(self, data: torch.Tensor) -> torch.Tensor:
-        """[k, l, N] -> standard-form coefficient residues [l, N]."""
-        k, l = data.shape[-3], data.shape[-2]
-        lim = self.q_limbs(l)
-        q, rinv = self._qrow(lim)
-        s = self.s_eval[:l]
-        m = data[..., 0, :, :]
-        spow = s
-        for i in range(1, k):
-            m = mm.mod_add(m, mm.mont_mul(data[..., i, :, :], spow, q, rinv), q)
-            if i + 1 < k:
-                spow = mm.mont_mul(spow, s, q, rinv)
-        coeff_mont = self.plan.inv(m, lim)
-        return mm.mont_mul(coeff_mont, torch.ones_like(q), q, rinv)  # REDC
+        """[..., k, l, N] -> standard-form coefficient residues [..., l, N]:
+        K9's MAC (c0 + c1 s (+ c2 s^2), REDC) then K1 on CUDA,
+        ``decrypt_plain`` on the CPU."""
+        if not data.is_cuda:
+            return decrypt_plain(self, data)
+        k, l, n = data.shape[-3:]
+        if n != self.n or not 1 <= k <= 3:
+            raise ValueError(f"decrypt: data {tuple(data.shape)} for N={self.n}")
+        d = data.reshape(-1, k, l, n)
+        if d.stride(-1) != 1 or d.stride(-2) != n:
+            d = d.contiguous()
+        kernels.check_cuda("decrypt_mac", d, contiguous=False)
+        kernels.check_cuda("decrypt_mac", self.s_eval, self.q32, self.qneg32)
+        B = d.shape[0]
+        out = torch.empty((B, l, n), dtype=torch.int32, device=data.device)
+        kernels.launch("imtpu_decrypt_mac", "decrypt_mac", kernels.ptr(out), kernels.ptr(d),
+                       d.stride(0), d.stride(1), k, kernels.ptr(self.s_eval),
+                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), B, l, n)
+        return self.plan.inv(out, self.q_limbs(l)).reshape(*data.shape[:-3], l, n)
 
     def decrypt_coeffs(self, ct: Ciphertext) -> np.ndarray:
         """-> centered float64 coefficient vector [n]."""
@@ -724,27 +929,35 @@ class CkksContext:
         return Ciphertext(mm.mont_mul(x.data, consts[None], q, rinv),
                           x.scale * pt_scale)
 
+    def _tensor(self, x: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
+        """Tensor product of data [2, lx, N] and [2, ly, N] (the square of
+        x when y is None) -> [3, min(lx, ly), N]: K9 on CUDA, reading
+        dropped limbs in place; ``tensor_plain`` on the CPU."""
+        if not x.is_cuda:
+            return tensor_plain(self, x, y)
+        ops = [x] if y is None else [x, y]
+        l, n = min(t.shape[-2] for t in ops), self.n
+        ops = [t if t.stride(-1) == 1 and t.stride(-2) == n else t.contiguous() for t in ops]
+        if any(t.shape[0] != 2 or t.shape[-1] != n for t in ops):
+            raise ValueError(f"tensor: operands {[tuple(t.shape) for t in ops]}")
+        kernels.check_cuda("tensor", *ops, contiguous=False)
+        kernels.check_cuda("tensor", self.q32, self.qneg32)
+        xs, ys = ops[0], ops[-1]
+        out = torch.empty((3, l, n), dtype=torch.int32, device=x.device)
+        kernels.launch("imtpu_tensor", "tensor", kernels.ptr(out), kernels.ptr(xs), xs.stride(0),
+                       0 if y is None else kernels.ptr(ys), ys.stride(0), int(y is None),
+                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), l, n)
+        return out
+
     def mul(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
-        """Tensor product without relinearization (EvalMultNoRelin)."""
+        """Tensor product without relinearization (EvalMultNoRelin); the
+        higher operand's top limbs drop (free modulus reduction)."""
         assert x.ncomp == 2 and y.ncomp == 2, "relinearize first"
-        l = min(x.limbs, y.limbs)
-        x, y = self.drop_to(x, l), self.drop_to(y, l)
-        q, rinv = self._qrow(self.q_limbs(l))
-        x0, x1 = x.data[0], x.data[1]
-        y0, y1 = y.data[0], y.data[1]
-        c0 = mm.mont_mul(x0, y0, q, rinv)
-        c1 = mm.mod_add(mm.mont_mul(x0, y1, q, rinv), mm.mont_mul(x1, y0, q, rinv), q)
-        c2 = mm.mont_mul(x1, y1, q, rinv)
-        return Ciphertext(torch.stack([c0, c1, c2]), x.scale * y.scale)
+        return Ciphertext(self._tensor(x.data, y.data), x.scale * y.scale)
 
     def square(self, x: Ciphertext) -> Ciphertext:
         assert x.ncomp == 2
-        q, rinv = self._qrow(self.q_limbs(x.limbs))
-        x0, x1 = x.data[0], x.data[1]
-        m = mm.mont_mul(x0, x1, q, rinv)
-        return Ciphertext(torch.stack([mm.mont_mul(x0, x0, q, rinv), mm.mod_add(m, m, q),
-                                       mm.mont_mul(x1, x1, q, rinv)]),
-                          x.scale * x.scale)
+        return Ciphertext(self._tensor(x.data, None), x.scale * x.scale)
 
     def drop_to(self, x: Ciphertext, l: int) -> Ciphertext:
         """Free modulus reduction: drop top limbs (scale unchanged)."""
@@ -754,25 +967,64 @@ class CkksContext:
         return Ciphertext(x.data[:, :l, :], x.scale)
 
     def rescale(self, x: Ciphertext) -> Ciphertext:
-        """Divide by the top prime (FIXEDMANUAL RescaleInPlace)."""
+        """Divide by the top prime (FIXEDMANUAL RescaleInPlace): on CUDA K1
+        inverse of the top limb (read in place), K7's lift pass, K1
+        forward, K7's sub-scale pass; ``rescale_plain`` on the CPU."""
         l = x.limbs
         assert l >= 2, "cannot rescale below guard level"
         qt = int(self.all_primes[l - 1])
-        lim_rest = self.q_limbs(l - 1)
-        q, rinv = self._qrow(lim_rest)
-        r2 = self.r2_64[: l - 1, None]
-        # top limb -> standard-form coefficients < qt
-        top_c = self.plan.inv(x.data[:, l - 1 : l, :], (l - 1,))
-        top_std = top_c.long() * mm.host_rinv(qt) % qt  # [k, 1, N]
-        # centered transfer mod each remaining prime
-        pos = mm.reduce_small(top_std, q)
-        negv = mm.mod_neg(mm.reduce_small(qt - top_std, q), q)
-        t_std = torch.where(top_std <= qt // 2, pos, negv)
-        t_eval = self.plan.fwd(mm.mont_mul(t_std, r2, q, rinv), lim_rest)
-        diff = mm.mod_sub(x.data[:, : l - 1, :], t_eval, q)
-        qtinv = self._limb_consts(("qtinv", qt), lim_rest,
-                                  lambda p: pow(qt, -1, p) * (R % p) % p)
-        return Ciphertext(mm.mont_mul(diff, qtinv, q, rinv), x.scale / qt)
+        if not x.data.is_cuda:
+            return Ciphertext(rescale_plain(self, x.data), x.scale / qt)
+        k, _, n = x.data.shape
+        top = self.plan.inv(x.data[:, l - 1 : l, :], (l - 1,))  # [k, 1, N]
+        kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
+        t = torch.empty((k, l - 1, n), dtype=torch.int32, device=x.data.device)
+        kernels.launch("imtpu_rescale_lift", "rescale_lift", kernels.ptr(t), kernels.ptr(top),
+                       qt, int(self.qneg_np[l - 1]), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), kernels.ptr(self.r2_32), k, l - 1, n)
+        t = self.plan.fwd(t, self.q_limbs(l - 1))
+        return Ciphertext(self._sub_scale(x.data, t, self._qtinv(l)[1]), x.scale / qt)
+
+    def _sub_scale(self, x: torch.Tensor, t: torch.Tensor, cinv: torch.Tensor,
+                   add: Optional[torch.Tensor] = None,
+                   perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K7's sub-scale pass: (x - t) * cinv per limb -> t's shape
+        [..., l, N], x's first l limbs read in place.  With ``add`` (see
+        ``add_rotated_plain``; t then [R, 2, l, N]) the addend, gathered
+        through ``perms``, is added in the same pass."""
+        n = self.n
+        l = t.shape[-2]
+        t = t.contiguous()
+        xs, B, x_bstride = kernels.row_blocks(x)
+        if t.numel() != B * l * n or x.shape[-2] < l:
+            raise ValueError(f"sub_scale: x {tuple(x.shape)} against t {tuple(t.shape)}")
+        kernels.check_cuda("sub_scale", xs, contiguous=False)
+        kernels.check_cuda("sub_scale", t, cinv, self.q32, self.qneg32)
+        add_k = add_r = add_c = perm_r = 0
+        if add is not None:
+            R = t.shape[0]
+            if add.stride(-1) != 1 or add.stride(-2) != n:
+                add = add.contiguous()
+            if (t.dim() != 4 or t.shape[1] != 2 or add.dim() != 4 or add.shape[0] not in (1, R)
+                    or add.shape[1] not in (1, 2) or add.shape[2] != l):
+                raise ValueError(f"sub_scale: addend {tuple(add.shape)} for {tuple(t.shape)}")
+            kernels.check_cuda("sub_scale", add, contiguous=False)
+            add_k, add_c = add.shape[1], add.stride(1)
+            add_r = add.stride(0) if add.shape[0] > 1 else 0
+            if perms is not None:
+                perms = perms.contiguous()
+                if perms.dim() != 2 or perms.shape[0] not in (1, R) or perms.shape[1] != n:
+                    raise ValueError(f"sub_scale: permutations {tuple(perms.shape)} for R={R}")
+                kernels.check_cuda("sub_scale", perms)
+                perm_r = n if perms.shape[0] > 1 else 0
+        elif perms is not None:
+            raise ValueError("sub_scale: a permutation needs an addend")
+        out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+        kernels.launch("imtpu_sub_scale", "sub_scale", kernels.ptr(out), kernels.ptr(xs),
+                       x_bstride, kernels.ptr(t), kernels.ptr(cinv), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), kernels.ptr(add), add_r, add_c, add_k,
+                       kernels.ptr(perms), perm_r, B, l, n)
+        return out
 
     # ------------------------------------------------------------------
     # key switching
@@ -809,14 +1061,18 @@ class CkksContext:
         self._fbc_cache[key] = c
         return c
 
-    def _fbc(self, x: torch.Tensor, src: Tuple[int, ...], dst: Tuple[int, ...]) -> torch.Tensor:
+    def _fbc(self, x: torch.Tensor, src: Tuple[int, ...], dst: Tuple[int, ...],
+             shift: Optional[Tuple] = None) -> torch.Tensor:
         """Fast base conversion of coefficient-domain Montgomery residues
         [..., g, N] (basis src) -> [..., t, N] (basis dst), approximate
-        (+-1 multiple of Q_src, standard for hybrid key switching).
-        Kernel K3 for a CUDA tensor, ``fbc_plain`` for a CPU tensor."""
+        (+-1 multiple of Q_src, standard for hybrid key switching); with
+        ``shift`` = (pre, post) pairs of ``_limb_pair`` the centred form of
+        the mod-down.  Kernel K3 for a CUDA tensor, ``fbc_plain`` for a CPU
+        tensor."""
         c = self._fbc_consts(tuple(src), tuple(dst))
+        pre, post = shift if shift is not None else ((None, None), (None, None))
         if not x.is_cuda:
-            return fbc_plain(x, c)
+            return fbc_plain(x, c, pre[0], post[0])
         x = x.contiguous()
         g, t, n = len(src), len(dst), self.n
         if x.shape[-2] != g or x.shape[-1] != n:
@@ -825,47 +1081,69 @@ class CkksContext:
         if batch > 65535:
             raise ValueError("fbc: batch exceeds the kernel's grid (65535)")
         out = torch.empty((*x.shape[:-2], t, n), dtype=torch.int32, device=x.device)
-        kernels.check_cuda("fbc", x, c.packed)
+        kernels.check_cuda("fbc", x, c.packed, *(v for v in (pre[1], post[1]) if v is not None))
         kernels.launch("imtpu_fbc", "fbc", kernels.ptr(out), kernels.ptr(x),
-                       kernels.ptr(c.packed), batch, g, t, n)
+                       kernels.ptr(c.packed), kernels.ptr(pre[1]), kernels.ptr(post[1]),
+                       batch, g, t, n)
         return out
 
-    def _decompose_extended(self, poly_eval: torch.Tensor, l: int) -> torch.Tensor:
-        """Hoisting precompute: digit-decompose eval-domain polys
-        [..., l, N] and extend every digit to the full current basis
-        Q_l + P.  Returns [..., ndig, l + S, N] eval Montgomery."""
-        coeff = self.plan.inv(poly_eval, self.q_limbs(l))
-        ext = self.ext_limbs(l)
-        digs = []
-        for grp in self.groups:
-            g = [i for i in grp if i < l]
-            if not g:
-                continue
-            a, b = g[0], g[-1] + 1
-            x = coeff[..., a:b, :]
-            other = tuple(i for i in ext if i not in g)
-            conv = self._fbc(x, tuple(g), other)
-            # ext order: conv rows below the digit, the digit's own rows
-            # copied exactly, then the remaining conv rows
-            digs.append(torch.cat([conv[..., :a, :], x, conv[..., a:, :]], dim=-2))
-        return self.plan.fwd(torch.stack(digs, dim=-3), ext)
+    def _decompose_consts(self, l: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K8's constants at level l: the live digits' K3 constant blocks
+        concatenated, and int32 [ndig, 3] (first limb, limb count, offset)."""
+        key = ("decompose", l)
+        if key not in self._const_cache:
+            blocks, info, off = [], [], 0
+            for g, other in self._digits(l):
+                if len(g) > 8 or len(other) > 32:
+                    raise ValueError(f"decompose: digit of {len(g)} limbs into {len(other)}")
+                packed = self._fbc_consts(g, other).packed
+                blocks.append(packed)
+                info += [g[0], len(g), off]
+                off += packed.numel()
+            self._const_cache[key] = (torch.cat(blocks), torch.tensor(
+                info, dtype=torch.int32, device=self.device))
+        return self._const_cache[key]
 
-    def _moddown(self, comp: torch.Tensor, l: int) -> torch.Tensor:
+    def _decompose_extended(self, poly_eval: torch.Tensor, l: int,
+                            perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Hoisting precompute: digit-decompose eval-domain polys
+        [..., l, N], gathered through the automorphism ``perms`` first
+        (int32 [N], or [R, N] for [R, l, N]; see ops.ntt.permute_rows), and
+        extend every digit to the full current basis Q_l + P.  Returns
+        [..., ndig, l + S, N] eval Montgomery.  On CUDA: K1 inverse (with
+        the gather in its loads), K8, one K1 forward over the digit stack;
+        ``decompose_plain`` on the CPU."""
+        if not poly_eval.is_cuda:
+            return decompose_plain(self, poly_eval, l, perms)
+        n = self.n
+        coeff = self.plan.inv(poly_eval, self.q_limbs(l), perms)
+        consts, info = self._decompose_consts(l)
+        ndig, E = info.numel() // 3, l + self.S
+        B = coeff.numel() // (l * n)
+        if B > 65535:
+            raise ValueError("decompose: batch exceeds the kernel's grid (65535)")
+        out = torch.empty((*coeff.shape[:-2], ndig, E, n), dtype=torch.int32,
+                          device=coeff.device)
+        kernels.check_cuda("decompose", coeff, consts, info)
+        kernels.launch("imtpu_decompose", "decompose", kernels.ptr(out), kernels.ptr(coeff),
+                       l * n, kernels.ptr(consts), kernels.ptr(info), B, ndig, E, n)
+        return self.plan.fwd(out, self.ext_limbs(l))
+
+    def _moddown(self, comp: torch.Tensor, l: int, add: Optional[torch.Tensor] = None,
+                 perms: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[..., l + S, N] eval over Q_l + P -> [..., l, N] eval over Q_l,
-        dividing by P (with centered correction)."""
-        sp = self.sp_limbs()
-        lim = self.q_limbs(l)
-        P = math.prod(self.params.sp_primes)
+        dividing by P (with centered correction).  With ``add`` (see
+        ``add_rotated_plain``; comp then [R, 2, l + S, N]) the rotated c0
+        or the relinearized input is added.  On CUDA: K1 inverse of the
+        special limbs (read in place), centred K3, K1 forward, K7's
+        sub-scale pass; ``moddown_plain`` on the CPU."""
+        if not comp.is_cuda:
+            return moddown_plain(self, comp, l, add, perms)
+        sp, lim = self.sp_limbs(), self.q_limbs(l)
         cp = self.plan.inv(comp[..., l:, :], sp)
-        # centered FBC: shift by +P/2 before conversion, subtract after
-        qsp, _ = self._qrow(sp)
-        cp_shift = mm.mod_add(cp, self._mont_const(P // 2, sp), qsp)
-        conv = self._fbc(cp_shift, sp, lim)
-        qd, rinvd = self._qrow(lim)
-        conv = mm.mod_sub(conv, self._mont_const(P // 2, lim), qd)
-        diff = mm.mod_sub(comp[..., :l, :], self.plan.fwd(conv, lim), qd)
-        pinv = self._limb_consts("pinv", lim, lambda p: pow(P % p, -1, p) * (R % p) % p)
-        return mm.mont_mul(diff, pinv, qd, rinvd)
+        conv = self._fbc(cp, sp, lim, self._centre_shift(l))
+        t = self.plan.fwd(conv, lim)
+        return self._sub_scale(comp, t, self._pinv(l)[1], add, perms)
 
     def _ks_mac(self, digs: torch.Tensor, ksk: torch.Tensor, l: int,
                 perms: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -906,37 +1184,32 @@ class CkksContext:
             kernels.ptr(self.q32), kernels.ptr(self.qneg32))
         return out
 
-    def _keyswitch_batch(self, digs, ksk, l: int, perms=None) -> torch.Tensor:
-        """MAC then mod-down of both components -> [R, 2, l, N]."""
-        return self._moddown(self._ks_mac(digs, ksk, l, perms), l)
-
-    def _keyswitch_digits(self, digs: torch.Tensor, ksk: torch.Tensor, l: int):
-        """digs [ndig, l+S, N] x ksk -> (d0, d1) each [l, N] over Q_l."""
-        d = self._keyswitch_batch(digs, ksk, l)[0]
-        return d[0], d[1]
+    def _keyswitch_batch(self, digs, ksk, l: int, perms=None, add=None,
+                         add_perms=None) -> torch.Tensor:
+        """MAC (digits gathered through ``perms``) then mod-down of both
+        components -> [R, 2, l, N], with ``add`` gathered through
+        ``add_perms`` added (see ``add_rotated_plain``)."""
+        return self._moddown(self._ks_mac(digs, ksk, l, perms), l, add, add_perms)
 
     def keyswitch(self, poly_eval: torch.Tensor, ksk: torch.Tensor) -> Tuple:
+        """poly [l, N] x ksk -> (d0, d1) each [l, N] over Q_l."""
         l = poly_eval.shape[-2]
-        return self._keyswitch_digits(self._decompose_extended(poly_eval, l), ksk, l)
+        d = self._keyswitch_batch(self._decompose_extended(poly_eval, l), ksk, l)[0]
+        return d[0], d[1]
 
     def relinearize(self, x: Ciphertext) -> Ciphertext:
         if x.ncomp == 2:
             return x
         assert x.ncomp == 3
-        l = x.limbs
-        d0, d1 = self.keyswitch(x.data[2], self.relin_key)
-        q, _ = self._qrow(self.q_limbs(l))
-        return Ciphertext(torch.stack([mm.mod_add(x.data[0], d0, q),
-                                       mm.mod_add(x.data[1], d1, q)]), x.scale)
+        return Ciphertext(self.relinearize_stack(x.data[None])[0], x.scale)
 
     def relinearize_stack(self, data: torch.Tensor) -> torch.Tensor:
         """Relinearize a stack of 3-component ciphertexts [R, 3, l, N] ->
-        [R, 2, l, N] with one batched keyswitch."""
+        [R, 2, l, N] with one batched keyswitch; c0, c1 are added in the
+        mod-down's last pass."""
         l = data.shape[-2]
-        d = self._keyswitch_batch(self._decompose_extended(data[:, 2], l),
-                                  self.relin_key, l)
-        q, _ = self._qrow(self.q_limbs(l))
-        return mm.mod_add(data[:, :2], d, q)
+        return self._keyswitch_batch(self._decompose_extended(data[:, 2], l),
+                                     self.relin_key, l, add=data[:, :2])
 
     def mul_relin(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
         return self.relinearize(self.mul(x, y))
@@ -945,28 +1218,21 @@ class CkksContext:
     # rotations
     # ------------------------------------------------------------------
 
-    def _perm_tensor(self, g: int) -> torch.Tensor:
-        if g not in self._perm_cache:
-            self._perm_cache[g] = torch.from_numpy(
-                self.plan.auto_perm(g).astype(np.int64)).to(self.device)
-        return self._perm_cache[g]
-
-    def _permute(self, data: torch.Tensor, g: int) -> torch.Tensor:
-        return data.index_select(-1, self._perm_tensor(g))
-
     def rotate(self, x: Ciphertext, r: int) -> Ciphertext:
-        """EvalRotate: left-rotate slots by r (requires key for this r)."""
+        """EvalRotate: left-rotate slots by r (requires key for this r).
+        The automorphism is gathered inside the kernels: c1's in the
+        decomposition's inverse NTT, c0's in the mod-down's last pass."""
         if r % self.slots == 0:
             return x
         g = self.rotation_galois(r)
         if g not in self.rot_keys:
             raise KeyError(f"no rotation key for r={r} (g={g})")
         assert x.ncomp == 2
-        _, key = self._rot_entry(g)
-        c0 = self._permute(x.data[0], g)
-        d0, d1 = self.keyswitch(self._permute(x.data[1], g), key)
-        q, _ = self._qrow(self.q_limbs(x.limbs))
-        return Ciphertext(torch.stack([mm.mod_add(c0, d0, q), d1]), x.scale)
+        perm, key = self._rot_entry(g)
+        perm = perm[None]
+        digs = self._decompose_extended(x.data[1], x.limbs, perm)
+        d = self._keyswitch_batch(digs, key, x.limbs, add=x.data[None, :1], add_perms=perm)
+        return Ciphertext(d[0], x.scale)
 
     def hoisted_precompute(self, x: Ciphertext) -> torch.Tensor:
         """EvalFastRotationPrecompute: digit-decompose+extend c1 once."""
@@ -982,12 +1248,10 @@ class CkksContext:
 
     def _hoisted(self, x: Ciphertext, digs, perms, keys) -> torch.Tensor:
         """Hoisted rotations of x by R automorphisms -> [R, 2, l, N]; the
-        digit permutation runs inside the MAC kernel."""
-        l = x.limbs
-        d = self._keyswitch_batch(digs, keys, l, perms)
-        q, _ = self._qrow(self.q_limbs(l))
-        c0 = x.data[0][:, perms.long()].transpose(0, 1)  # [R, l, N]
-        return torch.stack([mm.mod_add(c0, d[:, 0], q), d[:, 1]], dim=1)
+        digit permutation runs inside the MAC kernel, c0's inside the
+        mod-down's last pass."""
+        return self._keyswitch_batch(digs, keys, x.limbs, perms, add=x.data[None, :1],
+                                     add_perms=perms)
 
     def _rot_rows(self, rots: Sequence[int]):
         """Stacked (perms [R, N], keys [R, ...]) for the given rotations,
@@ -1017,14 +1281,10 @@ class CkksContext:
                      scale: float) -> torch.Tensor:
         """Rotate a stack of ciphertexts [R, 2, l, N] by per-row rotation
         amounts, as one batched keyswitch."""
-        Rn, _, l, n = data.shape
+        l = data.shape[-2]
         perms, keys = self._rot_rows(rots)
-        idx = perms.long()[:, None, :].expand(Rn, l, n)
-        c0 = torch.gather(data[:, 0], -1, idx)
-        c1 = torch.gather(data[:, 1], -1, idx)
-        d = self._keyswitch_batch(self._decompose_extended(c1, l), keys, l)
-        q, _ = self._qrow(self.q_limbs(l))
-        return torch.stack([mm.mod_add(c0, d[:, 0], q), d[:, 1]], dim=1)
+        digs = self._decompose_extended(data[:, 1], l, perms)
+        return self._keyswitch_batch(digs, keys, l, add=data[:, :1], add_perms=perms)
 
     def eval_sum(self, x: Ciphertext, m: int) -> Ciphertext:
         """Every slot j becomes sum of slots j..j+m-1 (cyclic): log2(m)
@@ -1037,10 +1297,10 @@ class CkksContext:
         q, _ = self._qrow(self.q_limbs(l))
         carry = x.data
         for k in range(steps):
-            idx = perms[k].long()
-            c0 = carry[0].index_select(-1, idx)
-            d0, d1 = self.keyswitch(carry[1].index_select(-1, idx), keys[k])
-            carry = mm.mod_add(carry, torch.stack([mm.mod_add(c0, d0, q), d1]), q)
+            perm = perms[k : k + 1]
+            digs = self._decompose_extended(carry[1], l, perm)
+            rot = self._keyswitch_batch(digs, keys[k], l, add=carry[None, :1], add_perms=perm)
+            carry = mm.mod_add(carry, rot[0], q)
         return Ciphertext(carry, x.scale)
 
     # ------------------------------------------------------------------

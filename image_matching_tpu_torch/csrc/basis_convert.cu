@@ -5,13 +5,11 @@
 //   y_i   = x_i * t_i mod q_i                (x_i Montgomery, y_i standard)
 //   v     = round(sum_i float32(y_i) * inv_q_i)   in float32
 //   out_p = sum_i y_i * Qhat_i - v * Q  mod p     (Montgomery)
+// The centred form of the mod-down (context.py:913, :926) adds pre[i]
+// (+P/2 in Montgomery form) to each source residue first and subtracts
+// post[p] (P/2) from each output, so its two glue passes disappear.
 //
-// Exactness: v must equal the JAX package's float32 value bit for bit, or
-// rare coefficients move by one multiple of Q.  XLA on the CPU sums the
-// axis in index order, each product and sum rounded to float32.  So the
-// sum here runs sequentially with __fmul_rn / __fadd_rn (which nvcc never
-// contracts into an FMA) and rounds half to even with rintf, as
-// jnp.round does.
+// Exactness: fbc.cuh (sequential float32 sum, rintf).
 //
 // What bounds it on the H100: device memory.  Per coefficient it reads g
 // residues and writes t, with g*t + 2t + g modular multiplies: a few
@@ -22,60 +20,45 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "modmath.cuh"
+#include "fbc.cuh"
 
-#define FBC_MAXG 8
-#define FBC_MAXT 32
-
-// consts layout (uint32 words): qs[g], qnegs[g], tstd[g], invq[g] (float
-// bits), qd[t], qnegd[t], qgr2[t], qhat[g * t] (row i = source limb).
 __global__ void fbc_kernel(uint32_t *__restrict__ out,
                            const uint32_t *__restrict__ x,
-                           const uint32_t *__restrict__ consts, int g, int t,
+                           const uint32_t *__restrict__ consts,
+                           const uint32_t *__restrict__ pre,
+                           const uint32_t *__restrict__ post, int g, int t,
                            int n) {
-  __shared__ uint32_t cs[4 * FBC_MAXG + 3 * FBC_MAXT + FBC_MAXG * FBC_MAXT];
+  __shared__ uint32_t cs[FBC_MAXCS];
   const int ncs = 4 * g + 3 * t + g * t;
   for (int i = threadIdx.x; i < ncs; i += blockDim.x) cs[i] = consts[i];
   __syncthreads();
-  const uint32_t *qs = cs, *qnegs = cs + g, *tstd = cs + 2 * g;
-  const float *invq = reinterpret_cast<const float *>(cs + 3 * g);
-  const uint32_t *qd = cs + 4 * g, *qnegd = qd + t, *qgr2 = qd + 2 * t;
-  const uint32_t *qhat = qd + 3 * t;
+  const FbcView f = fbc_view(cs, g, t);
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;
   const size_t b = blockIdx.y;
-  const uint32_t *xr = x + b * g * n + c;
   uint32_t y[FBC_MAXG];
-  float acc = 0.0f;
-  for (int i = 0; i < g; ++i) {
-    y[i] = mont_mul(xr[(size_t)i * n], tstd[i], qs[i], qnegs[i]);
-    const float f = __fmul_rn(__uint2float_rn(y[i]), invq[i]);
-    acc = i == 0 ? f : __fadd_rn(acc, f);
-  }
-  const uint32_t v = (uint32_t)rintf(acc);
+  const uint32_t v = fbc_load(f, x + b * g * n + c, n, pre, y);
   uint32_t *o = out + b * t * n + c;
   for (int p = 0; p < t; ++p) {
-    const uint32_t qp = qd[p], qn = qnegd[p];
-    uint32_t sum = 0;
-    for (int i = 0; i < g; ++i)
-      sum = mod_add(sum, mont_mul(y[i], qhat[i * t + p], qp, qn), qp);
-    o[(size_t)p * n] = mod_sub(sum, mont_mul(v, qgr2[p], qp, qn), qp);
+    const uint32_t r = fbc_target(f, y, v, p);
+    o[(size_t)p * n] = post ? mod_sub(r, post[p], f.qd[p]) : r;
   }
 }
 
 // x: [batch, g, n] coefficient-domain Montgomery residues over the source
-// limbs; out: [batch, t, n] over the target limbs.
+// limbs; out: [batch, t, n] over the target limbs; pre [g] / post [t]:
+// the centred shift in Montgomery form, or NULL for the plain conversion.
 extern "C" int imtpu_fbc(void *out, const void *x, const void *consts,
-                         int64_t batch, int64_t g, int64_t t, int64_t n,
-                         void *stream) {
+                         const void *pre, const void *post, int64_t batch,
+                         int64_t g, int64_t t, int64_t n, void *stream) {
   if (g < 1 || g > FBC_MAXG || t < 1 || t > FBC_MAXT)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const int threads = 256;
   dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)batch);
   fbc_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (uint32_t *)out, (const uint32_t *)x, (const uint32_t *)consts, (int)g,
-      (int)t, (int)n);
+      (uint32_t *)out, (const uint32_t *)x, (const uint32_t *)consts,
+      (const uint32_t *)pre, (const uint32_t *)post, (int)g, (int)t, (int)n);
   return (int)cudaGetLastError();
 }

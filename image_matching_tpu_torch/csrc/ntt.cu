@@ -18,6 +18,12 @@
 // use here.  One block per SM fits (128 KiB of 227 KiB); rows >= 132 fill
 // the card.  Bank conflicts in the short-stride stages and the
 // per-stage __syncthreads are the next costs to attack.
+//
+// The loads take a batch stride, so a slice of limbs (the top limb of a
+// rescale, the special limbs of a mod-down) is read in place, and an
+// optional permutation perm[x] of the input coefficients: the Galois
+// automorphism gather of image_matching_tpu/ckks/context.py _permute (:976)
+// fused into the inverse NTT that starts a rotation's key switch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,6 +32,9 @@
 template <bool INVERSE>
 __global__ void ntt_kernel(uint32_t *__restrict__ out,
                            const uint32_t *__restrict__ in,
+                           int64_t in_bstride,
+                           const int32_t *__restrict__ perm,
+                           int64_t perm_bstride,
                            const int32_t *__restrict__ limb_idx, int L,
                            int logn, const uint32_t *__restrict__ tw,
                            const uint32_t *__restrict__ tw_sh,
@@ -40,8 +49,14 @@ __global__ void ntt_kernel(uint32_t *__restrict__ out,
   const uint32_t q = qs[limb];
   const uint32_t *w = tw + (size_t)limb * n;
   const uint32_t *wsh = tw_sh + (size_t)limb * n;
-  const uint32_t *src = in + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[i];
+  const size_t b = row / L;
+  const uint32_t *src = in + b * in_bstride + (row % L) * (size_t)n;
+  if (perm) {
+    const int32_t *pr = perm + b * perm_bstride;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[pr[i]];
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[i];
+  }
   __syncthreads();
   if (!INVERSE) {
     // stage m = 2^st: t = n / 2m; butterfly k -> group g = k / t
@@ -83,10 +98,15 @@ __global__ void ntt_kernel(uint32_t *__restrict__ out,
   }
 }
 
-// rows = batch * L rows of n = 2^logn residues; row r uses table row
-// limb_idx[r % L].  tw/tw_sh are psis/psis_sh (forward) or
-// ipsis/ipsis_sh (inverse), [Ltot, n].  out may alias in.
-extern "C" int imtpu_ntt(void *out, const void *in, const void *limb_idx,
+// rows = batch * L rows of n = 2^logn residues; row r = (b, i) reads
+// in + b * in_bstride + i * n (through perm + b * perm_bstride when perm
+// is not NULL; perm_bstride 0 shares one permutation) and uses table row
+// limb_idx[i].  tw/tw_sh are psis/psis_sh (forward) or ipsis/ipsis_sh
+// (inverse), [Ltot, n].  out is [rows, n]; it may alias in when in is
+// contiguous and perm is NULL.
+extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
+                         const void *perm, int64_t perm_bstride,
+                         const void *limb_idx,
                          int64_t rows, int64_t L, int64_t logn, const void *tw,
                          const void *tw_sh, const void *qs, const void *ninv,
                          const void *ninv_sh, int64_t inverse, void *stream) {
@@ -99,7 +119,8 @@ extern "C" int imtpu_ntt(void *out, const void *in, const void *limb_idx,
     cudaFuncSetAttribute(ntt_kernel<true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     ntt_kernel<true><<<(unsigned)rows, threads, smem, st>>>(
-        (uint32_t *)out, (const uint32_t *)in, (const int32_t *)limb_idx,
+        (uint32_t *)out, (const uint32_t *)in, in_bstride,
+        (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
         (int)L, (int)logn, (const uint32_t *)tw, (const uint32_t *)tw_sh,
         (const uint32_t *)qs, (const uint32_t *)ninv,
         (const uint32_t *)ninv_sh);
@@ -107,7 +128,8 @@ extern "C" int imtpu_ntt(void *out, const void *in, const void *limb_idx,
     cudaFuncSetAttribute(ntt_kernel<false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     ntt_kernel<false><<<(unsigned)rows, threads, smem, st>>>(
-        (uint32_t *)out, (const uint32_t *)in, (const int32_t *)limb_idx,
+        (uint32_t *)out, (const uint32_t *)in, in_bstride,
+        (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
         (int)L, (int)logn, (const uint32_t *)tw, (const uint32_t *)tw_sh,
         (const uint32_t *)qs, (const uint32_t *)ninv,
         (const uint32_t *)ninv_sh);

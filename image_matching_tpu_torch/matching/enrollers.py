@@ -1,11 +1,12 @@
-"""Encrypted-database enrollment for HyDia, approach 5 (port of the
-DiagDB part of image_matching_tpu/matching/enrollers.py).
+"""Encrypted-database enrollment for HyDia, approach 5, and HERS,
+approach 4 (port of the DiagDB and HersDB parts of
+image_matching_tpu/matching/enrollers.py).
 
-The plaintext layout (``diag_group_vals``) is the JAX package's numpy
-code; what changes is that the ciphertexts are torch tensors on the
-context's device, written chunk by chunk into one preallocated stack so
-the database is never held twice.  The other layouts (approaches 1-4)
-are not ported yet (ROADMAP A8, A9).
+The plaintext layouts (``diag_group_vals``, ``hers_group_vals``) are the
+JAX package's numpy code; what changes is that the ciphertexts are torch
+tensors on the context's device, written chunk by chunk into one
+preallocated stack so the database is never held twice.  The other
+layouts (approaches 1-3) are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ class DiagDB:
     n1: int  # baby steps (bsgs only)
 
 
+@dataclasses.dataclass
+class HersDB:
+    """Dimension-major layout (approach 4, HERS): ciphertext (m, j) holds
+    feature j of ``slots`` consecutive vectors."""
+    data: torch.Tensor  # [num_matrices, dim, 2, L, N]
+    num_vectors: int
+    scale: float
+
+
 def _encrypt_stack(ctx: CkksContext, values: np.ndarray, chunk: int = 64) -> torch.Tensor:
     """Encrypt [B, slots] -> [B, 2, L, N] in chunks of `chunk` (one
     encryption seed drawn per chunk, as in the JAX package)."""
@@ -47,6 +57,27 @@ def _encrypt_stack(ctx: CkksContext, values: np.ndarray, chunk: int = 64) -> tor
     for i in range(0, B, chunk):
         out[i : i + chunk] = ctx.encrypt_batch(values[i : i + chunk])
     return out
+
+
+def hers_group_vals(rows: np.ndarray, batch: int) -> np.ndarray:
+    """Slot values of one HERS matrix: up to ``batch`` normalized vectors
+    [rows, dim] -> [dim, batch], values[j, k] = rows[k][j] (zero padded)."""
+    full = np.zeros((batch, rows.shape[1]))
+    full[: rows.shape[0]] = rows
+    return np.ascontiguousarray(full.T)
+
+
+def enroll_hers(ctx: CkksContext, cfg: MatchConfig, db: np.ndarray) -> HersDB:
+    dim = cfg.vector_dim
+    batch = ctx.slots
+    nvec = db.shape[0]
+    nm = math.ceil(nvec / batch)
+    db = normalize(db)
+    # values[m, j, k] = db[m*batch + k][j]
+    vals = np.concatenate([hers_group_vals(db[m * batch: (m + 1) * batch], batch)
+                           for m in range(nm)])
+    data = _encrypt_stack(ctx, vals).reshape(nm, dim, 2, -1, ctx.n)
+    return HersDB(data, nvec, ctx.fresh_scale)
 
 
 def diag_group_vals(sq: np.ndarray, dim: int, mpb: int, bsgs: bool,

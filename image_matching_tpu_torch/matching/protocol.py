@@ -1,6 +1,7 @@
 """End-to-end protocol orchestration: enroller + sender + receiver wired
-together (port of image_matching_tpu/matching/protocol.py; approach 5
-with an in-memory or a streamed, seed-compressed encrypted DB)."""
+together (port of image_matching_tpu/matching/protocol.py; approaches 4
+and 5, each with an in-memory or a streamed, seed-compressed encrypted
+DB)."""
 
 from __future__ import annotations
 
@@ -34,24 +35,29 @@ class MatchingProtocol:
         """Build the context (depth from computeRequiredDepth) on `device`
         unless one is given, generate keys, enroll the database.  With
         streamed=True the DB is enrolled seed-compressed into a DiagStore
-        (``streaming.enroll_diag_streamed``, which takes ``stream_kw``) and
-        served by the StreamedDiagonalSender."""
-        if streamed and approach == 4:
-            raise NotImplementedError("the streamed HERS store is not ported yet: ROADMAP A8")
+        (approach 5) or a HersStore (approach 4) by
+        ``streaming.enroll_diag_streamed`` / ``enroll_hers_streamed``, which
+        take ``stream_kw``, and served by the matching streamed sender."""
         if approach in senders.NOT_PORTED:
             raise NotImplementedError(senders.NOT_PORTED[approach])
+        if approach not in (4, 5):
+            raise ValueError(f"approach must be 1..5, got {approach}")
         cfg = cfg or MatchConfig()
         if ctx is None:
             if params is None:
                 depth = compute_required_depth(approach, cfg.comp_depth, cfg.alpha_depth)
                 params = SchemeParams.create(mult_depth=depth)
             ctx = CkksContext(params, seed=seed, device=device)
-        if streamed:
+        sender: senders.Sender
+        if streamed and approach == 4:
+            hstore = streaming.enroll_hers_streamed(ctx, cfg, database, **stream_kw)
+            sender = streaming.StreamedHersSender(ctx, cfg, hstore)
+        elif streamed:
             store = streaming.enroll_diag_streamed(ctx, cfg, database, **stream_kw)
-            sender: senders.Sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
+            sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
         else:
-            db = enrollers.enroll_diag(ctx, cfg, database)
-            sender = senders.make_sender(approach, ctx, cfg, db)
+            enroll = enrollers.enroll_hers if approach == 4 else enrollers.enroll_diag
+            sender = senders.make_sender(approach, ctx, cfg, enroll(ctx, cfg, database))
         receiver = receivers.make_receiver(approach, ctx, cfg, database.shape[0])
         ctx.gen_power_of_two_rotation_keys()
         ctx.gen_rotation_keys(sender.required_rotations(), force=True)

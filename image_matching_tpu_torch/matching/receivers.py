@@ -1,6 +1,5 @@
 """Receivers: client-side query encryption and result decryption/decoding
-(port of image_matching_tpu/matching/receivers.py, approach 5 and the
-HERS decode rules it shares)."""
+(port of image_matching_tpu/matching/receivers.py, approaches 4 and 5)."""
 
 from __future__ import annotations
 
@@ -71,7 +70,7 @@ class DiagonalReceiver(BaseReceiver):
 
 def make_receiver(approach: int, ctx: CkksContext, cfg: MatchConfig,
                   num_vectors: int) -> HersReceiver:
-    if approach != 5:
-        raise NotImplementedError(
-            f"approach {approach} receiver is not ported yet: ROADMAP A8/A9")
-    return DiagonalReceiver(ctx, cfg, num_vectors)
+    if approach not in (4, 5):
+        raise NotImplementedError(f"approach {approach} receiver is not ported yet: ROADMAP A9")
+    cls = HersReceiver if approach == 4 else DiagonalReceiver
+    return cls(ctx, cfg, num_vectors)

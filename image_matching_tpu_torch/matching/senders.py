@@ -1,5 +1,6 @@
-"""Senders: server-side homomorphic similarity + compare pipeline for
-HyDia, approach 5 (port of image_matching_tpu/matching/senders.py).
+"""Senders: server-side homomorphic similarity + compare pipelines for
+HyDia, approach 5, and HERS, approach 4 (port of
+image_matching_tpu/matching/senders.py).
 
 ``ct_dot``, the diagonal contraction, launches kernel K2
 (``csrc/ct_dot.cu``) for CUDA tensors and runs ``ct_dot_plain`` for CPU
@@ -10,8 +11,9 @@ ciphertexts and DB groups become Python loops or a leading batch axis.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from image_matching_tpu.matching.config import MatchConfig
@@ -20,7 +22,7 @@ from ..ckks import poly_eval
 from ..ckks.context import CkksContext, Ciphertext
 from ..ops import kernels
 from ..ops import modmath as mm
-from .enrollers import DiagDB
+from .enrollers import DiagDB, HersDB
 
 
 def ct_dot_plain(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -171,17 +173,80 @@ class DiagonalSender(Sender):
                 for dbd in self.db.data]  # [dim, 2, l, N] per group
 
 
+def generate_query_helper(ctx: CkksContext, cfg: MatchConfig, query_ct: Ciphertext,
+                          index: int) -> Ciphertext:
+    """Server-side expansion of a single replicated-query ciphertext into
+    the dimension-major form: mask feature ``index``, EvalSum over
+    vector_dim to fill all slots, rescale (reference generateQueryHelper)."""
+    mask = np.zeros(ctx.slots)
+    mask[index::cfg.vector_dim] = 1.0
+    pt = ctx.encode_cached(("qh_mask", cfg.vector_dim, index), mask, query_ct.limbs,
+                           ctx.params.scale)
+    out = ctx.eval_sum(ctx.mul_plain(query_ct, pt), cfg.vector_dim)  # rotations pre-rescale
+    return ctx.rescale(out)
+
+
+def expand_query_alt(ctx: CkksContext, cfg: MatchConfig, qct: Ciphertext) -> List[Ciphertext]:
+    """All vector_dim ``generate_query_helper`` expansions (the JAX
+    package's vmap becomes a loop)."""
+    return [generate_query_helper(ctx, cfg, qct, j) for j in range(cfg.vector_dim)]
+
+
+def hers_query_stack(ctx: CkksContext, cfg: MatchConfig,
+                     query: List[Ciphertext]) -> Tuple[torch.Tensor, float]:
+    """The HERS query as one stack [dim, 2, l, N] and its scale; a single
+    replicated-query ciphertext (encryptQueryAlt) is expanded first."""
+    if cfg.hers_alt_query and len(query) == 1:
+        query = expand_query_alt(ctx, cfg, query[0])
+    return torch.stack([c.data for c in query]), query[0].scale
+
+
+def hers_matrix_score(ctx: CkksContext, cfg: MatchConfig, Q: torch.Tensor, dbd: torch.Tensor,
+                      q_scale: float, db_scale: float) -> Ciphertext:
+    """Score ciphertext of one HERS matrix dbd [dim, 2, l, N]: score =
+    sum_j q_j (*) d_j as one contraction (ct_dot, K=dim), relinearize,
+    rescale; with ``faithful_hers`` the reference's per-term product,
+    relinearization and rescale, then the modular sum."""
+    if not cfg.faithful_hers:
+        t3 = ct_dot(ctx, Q, dbd)
+        return ctx.rescale_score(ctx.relinearize(Ciphertext(t3, q_scale * db_scale)))
+    outs = [ctx.rescale_score(ctx.relinearize(ctx.mul(Ciphertext(Q[j], q_scale),
+                                                      Ciphertext(dbd[j], db_scale))))
+            for j in range(Q.shape[0])]
+    acc = outs[0].data
+    q, _ = ctx._qrow(ctx.q_limbs(acc.shape[-2]))
+    for o in outs[1:]:
+        acc = mm.mod_add(acc, o.data, q)
+    return Ciphertext(acc, outs[0].scale)
+
+
+class HersSender(Sender):
+    """Approach 4 (HERS): dimension-major DB; score(m) = sum_j q_j (*)
+    d_{m,j}.  Needs only the power-of-two rotation keys (the membership
+    EvalSum and the alt query's expansion)."""
+
+    def __init__(self, ctx, cfg, db: HersDB):
+        super().__init__(ctx, cfg, db.num_vectors)
+        self.db = db
+
+    def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        Q, sq = hers_query_stack(self.ctx, self.cfg, query)
+        return [hers_matrix_score(self.ctx, self.cfg, Q, dbd, sq, self.db.scale)
+                for dbd in self.db.data]  # [dim, 2, l, N] per matrix
+
+
 NOT_PORTED = {
     1: "approach 1 (Baseline) is not ported yet: ROADMAP A9",
     2: "approach 2 (GROTE) is not ported yet: ROADMAP A9",
     3: "approach 3 (Blind-Match) is not ported yet: ROADMAP A9",
-    4: "approach 4 (HERS) is not ported yet: ROADMAP A8",
 }
 
 
 def make_sender(approach: int, ctx: CkksContext, cfg: MatchConfig, db) -> Sender:
     if approach in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[approach])
+    if approach == 4:
+        return HersSender(ctx, cfg, db)
     if approach != 5:
         raise ValueError(f"approach must be 1..5, got {approach}")
     return DiagonalSender(ctx, cfg, db)

@@ -35,20 +35,29 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # C entry point -> its arguments before the trailing stream: "p" a device
 # pointer (c_void_p), "i" an int64_t.
 _ENTRIES = {
-    "imtpu_ntt": "pppiiipppppi",
+    "imtpu_ntt": "ppipipiiipppppi",
     "imtpu_ct_dot": "pppiiiiiipp",
-    "imtpu_fbc": "pppiiii",
+    "imtpu_fbc": "pppppiiii",
     "imtpu_ks_mac": "ppippiiiiiiiipp",
     "imtpu_expand_c1": "pppppiiiiii",
     "imtpu_seeded_pre": "pppppppppiii",
     "imtpu_seeded_c0": "pppppppiiiii",
+    "imtpu_rescale_lift": "ppiipppiii",
+    "imtpu_sub_scale": "ppipppppiiipiiii",
+    "imtpu_decompose": "ppippiiii",
+    "imtpu_tensor": "ppipiippii",
+    "imtpu_decrypt_mac": "ppiiipppiii",
+    "imtpu_pk_pre": "ppppppppiii",
+    "imtpu_pk_mac": "ppppppiii",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
 # launch counters: one per kernel, the NTT counted per direction and the
-# seeded encryption (K6) per pass
+# two-pass kernels (K6 seeded encryption, K7 division by a modulus, K9
+# tensor product / decrypt MAC, K10 public-key encryption) per pass
 KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
-           "seeded_pre", "seeded_c0")
+           "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale", "decompose",
+           "tensor", "decrypt_mac", "pk_pre", "pk_mac")
 _counts = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -151,17 +160,33 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def check_cuda(name: str, *tensors):
-    """Raise unless every tensor is a contiguous int32 CUDA tensor on one
-    device (the kernels read int32 storage as uint32 residues)."""
+def check_cuda(name: str, *tensors, contiguous: bool = True, dtype=torch.int32):
+    """Raise unless every tensor is a CUDA tensor of ``dtype`` on one
+    device (int32: the kernels read int32 storage as uint32 residues),
+    contiguous unless ``contiguous`` is False (a strided view passed with
+    its strides)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: tensors must share one CUDA device")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: expected int32, got {t.dtype}")
-        if not t.is_contiguous():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def row_blocks(t: torch.Tensor):
+    """(t, batch, stride) for t [..., L, N] whose [L, N] blocks are each
+    contiguous and lie ``stride`` elements apart along the flattened
+    leading axes, so a kernel reads a slice of limbs in place; t is
+    copied (contiguous) only where no single stride addresses it."""
+    L, n = t.shape[-2], t.shape[-1]
+    batch = t.numel() // (L * n) if L * n else 0
+    if t.stride(-1) == 1 and (L == 1 or t.stride(-2) == n):
+        dims = [(s, st) for s, st in zip(t.shape[:-2], t.stride()[:-2]) if s != 1]
+        if all(dims[i][1] == dims[i + 1][1] * dims[i + 1][0] for i in range(len(dims) - 1)):
+            return t, batch, dims[-1][1] if dims else L * n
+    return t.contiguous(), batch, L * n
 
 
 def launch(entry: str, counter: str, *args):

@@ -12,13 +12,15 @@ wiring over these tables is bit-identical to the JAX plan, and
 
 ``NttPlan.fwd`` / ``inv`` launch the CUDA kernel K1 (``csrc/ntt.cu``) for a
 CUDA tensor and run the plain torch version (``ntt_fwd_plain`` /
-``ntt_inv_plain``) for a CPU tensor.  The JAX plan's uniform-stage loop
+``ntt_inv_plain``) for a CPU tensor.  K1 reads a strided batch of limb
+blocks in place and can gather the input through an automorphism
+permutation on its way in.  The JAX plan's uniform-stage loop
 tables exist only to keep XLA graphs small and are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -188,40 +190,76 @@ class NttPlan:
                                                 device=self.device)
         return self._idx_cache[key]
 
-    def fwd(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
+    def fwd(self, a: torch.Tensor, limbs: Tuple[int, ...],
+            perm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Forward NTT of [..., L, N] Montgomery coefficients (natural order)
-        -> evaluation form (bit-reversed order)."""
+        -> evaluation form (bit-reversed order).  ``perm`` (see
+        ``permute_rows``) gathers the input coefficients first."""
         if a.is_cuda:
-            return self._launch(a, limbs, inverse=False)
+            return self._launch(a, limbs, False, perm)
+        return self.fwd_plain(permute_rows(a, perm), limbs)
+
+    def inv(self, a: torch.Tensor, limbs: Tuple[int, ...],
+            perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inverse NTT: evaluation form -> natural-order coefficients,
+        including the 1/N scaling.  ``perm`` (see ``permute_rows``)
+        gathers the input's evaluation slots first: a Galois automorphism
+        applied on the way in."""
+        if a.is_cuda:
+            return self._launch(a, limbs, True, perm)
+        return self.inv_plain(permute_rows(a, perm), limbs)
+
+    def fwd_plain(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
+        """The plain forward transform on any device."""
         idx = self.limb_index(limbs).long()
         return ntt_fwd_plain(a, self.psis[idx], self.q[idx])
 
-    def inv(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
-        """Inverse NTT: evaluation form -> natural-order coefficients,
-        including the 1/N scaling."""
-        if a.is_cuda:
-            return self._launch(a, limbs, inverse=True)
+    def inv_plain(self, a: torch.Tensor, limbs: Tuple[int, ...]) -> torch.Tensor:
+        """The plain inverse transform on any device."""
         idx = self.limb_index(limbs).long()
         return ntt_inv_plain(a, self.ipsis[idx], self.q[idx], self.ninv[idx])
 
-    def _launch(self, a: torch.Tensor, limbs, inverse: bool) -> torch.Tensor:
-        a = a.contiguous()
+    def _launch(self, a: torch.Tensor, limbs, inverse: bool,
+                perm: Optional[torch.Tensor]) -> torch.Tensor:
         L, n = a.shape[-2], a.shape[-1]
         if L != len(limbs) or n != self.n:
             raise ValueError(f"ntt: data {tuple(a.shape)} does not match "
                              f"{len(limbs)} limbs of N={self.n}")
         if n > MAX_KERNEL_N:
             raise ValueError(f"ntt kernel holds a row in shared memory: N <= {MAX_KERNEL_N}")
+        src, batch, bstride = kernels.row_blocks(a)
+        perm_bstride = 0
+        if perm is not None:
+            perm = perm.contiguous()
+            if perm.shape[-1] != n or perm.dim() > 2 or (
+                    perm.dim() == 2 and perm.shape[0] not in (1, batch)):
+                raise ValueError(f"ntt: permutation {tuple(perm.shape)} for {batch} rows")
+            perm_bstride = n if perm.dim() == 2 and perm.shape[0] > 1 else 0
+            kernels.check_cuda("ntt", perm)
         idx = self.limb_index(limbs)
         tw, tw_sh = (self.ipsis, self.ipsis_sh) if inverse else (self.psis, self.psis_sh)
-        kernels.check_cuda("ntt", a, idx, tw, tw_sh, self.q, self.ninv, self.ninv_sh)
-        out = torch.empty_like(a)
+        kernels.check_cuda("ntt", idx, tw, tw_sh, self.q, self.ninv, self.ninv_sh)
+        kernels.check_cuda("ntt", src, contiguous=False)
+        out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
         kernels.launch(
             "imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd",
-            kernels.ptr(out), kernels.ptr(a), kernels.ptr(idx), a.numel() // n, L,
-            self.logn, kernels.ptr(tw), kernels.ptr(tw_sh), kernels.ptr(self.q),
-            kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh), int(inverse))
+            kernels.ptr(out), kernels.ptr(src), bstride, kernels.ptr(perm), perm_bstride,
+            kernels.ptr(idx), batch * L, L, self.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
+            kernels.ptr(self.q), kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh),
+            int(inverse))
         return out
+
+
+def permute_rows(a: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
+    """a [..., L, N] with its last axis gathered through perm: int [N]
+    (every row), or [B, N] with one permutation per [L, N] block of a
+    [B, L, N] (plain torch; the kernels gather inside their loads)."""
+    if perm is None:
+        return a
+    if perm.dim() == 1 or perm.shape[0] == 1:
+        return a.index_select(-1, perm.reshape(-1).long())
+    idx = perm.long()[:, None, :].expand(a.shape[0], a.shape[-2], a.shape[-1])
+    return torch.gather(a, -1, idx)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 Lets both packages compute on the same keys and ciphertexts: a context's
 secret, public, relinearization and rotation keys (with the galois ->
-{set: row} map that picks among key sets), a DiagDB, a streamed DiagStore
-and ciphertexts.
+{set: row} map that picks among key sets), a DiagDB or HersDB, a streamed
+DiagStore or HersStore, and ciphertexts.
 Residues arrive as uint32 (the JAX dtype) and are stored as int32 with
 the same bits.  Only numpy arrays cross: this module never imports jax.
 """
@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from ..ckks.context import Ciphertext, CkksContext
-from ..matching.enrollers import DiagDB
-from ..matching.streaming import DiagStore
+from ..matching.enrollers import DiagDB, HersDB
+from ..matching.streaming import DiagStore, HersStore, SeededStore
 from ..ops import modmath as mm
 
 
@@ -67,12 +67,27 @@ def diag_db(data: np.ndarray, num_vectors: int, scale: float, bsgs: bool,
                   bool(bsgs), int(n1))
 
 
+def hers_db(data: np.ndarray, num_vectors: int, scale: float, device="cpu") -> HersDB:
+    """A JAX HersDB's fields ([num_matrices, dim, 2, L, N] uint32 data)."""
+    return HersDB(mm.to_tensor(data, device), int(num_vectors), float(scale))
+
+
+def _fill(store: SeededStore, groups: Sequence[np.ndarray]) -> SeededStore:
+    for g in groups:
+        store.groups.append(mm.to_tensor(np.asarray(g), store.ctx.device))
+        store.resident.append(True)
+    return store
+
+
 def diag_store(ctx: CkksContext, groups: Sequence[np.ndarray], num_vectors: int,
                scale: float, bsgs: bool, n1: int, seed: int) -> DiagStore:
     """A JAX DiagStore's fields: its c0 groups ([dim, L, N] uint32 each),
     all placed resident on ctx's device; c1 follows from ``seed``."""
-    store = DiagStore(ctx, int(num_vectors), float(scale), bool(bsgs), int(n1), int(seed))
-    for g in groups:
-        store.groups.append(mm.to_tensor(np.asarray(g), ctx.device))
-        store.resident.append(True)
-    return store
+    return _fill(DiagStore(ctx, int(num_vectors), float(scale), bool(bsgs), int(n1), int(seed)),
+                 groups)
+
+
+def hers_store(ctx: CkksContext, groups: Sequence[np.ndarray], num_vectors: int,
+               scale: float, seed: int) -> HersStore:
+    """A JAX HersStore's fields, as ``diag_store``."""
+    return _fill(HersStore(ctx, int(num_vectors), float(scale), int(seed)), groups)

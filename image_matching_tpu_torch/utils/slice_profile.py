@@ -1,11 +1,12 @@
-"""Where the time goes in the port's HyDia main path on one GPU.
+"""Where the time goes in the port's HyDia and HERS paths on one GPU.
 
-    python3 -m image_matching_tpu_torch.utils.slice_profile [--log2n 16] [--streamed]
+    python3 -m image_matching_tpu_torch.utils.slice_profile [--approach 5] [--log2n 16] [--streamed]
 
-Sets up HyDia (approach 5, production parameters; an in-memory DB, or
-with --streamed the seed-compressed DiagStore under the derived
-device-memory budget) step by step, timing keygen, enrollment and rotation
-keys; times similarity, compare and the final EvalSum of membership, plus
+Sets up HyDia (approach 5) or HERS (--approach 4) at production
+parameters (an in-memory DB, or with --streamed the seed-compressed store
+under the derived device-memory budget) step by step, timing keygen,
+enrollment, rotation keys and the query's encryption; times similarity,
+compare and the final EvalSum of membership, plus
 whole membership and index calls, three times each after a first call; then runs
 torch.profiler over one membership and one similarity and reports device
 kernel time, busy share (kernel time over the profiled wall time) and the
@@ -32,7 +33,9 @@ from ..matching import enrollers, receivers, senders, streaming
 from ..ops import kernels
 
 OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
-        "seeded_pre_kernel", "seeded_c0_kernel")
+        "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
+        "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
+        "pk_mac_kernel")
 
 
 def timed(out, label, fn):
@@ -44,27 +47,31 @@ def timed(out, label, fn):
     return r
 
 
-def run(log2n: int, streamed: bool, say, log):
+def run(approach: int, log2n: int, streamed: bool, say, log):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     say(f"{smi}; torch {torch.__version__}")
     cfg = MatchConfig()
-    params = SchemeParams.create(mult_depth=compute_required_depth(5, cfg.comp_depth))
+    params = SchemeParams.create(mult_depth=compute_required_depth(approach, cfg.comp_depth))
     query, db = gen_dataset(1 << log2n, cfg.vector_dim, seed=0)
     kernels.lib()
     setup = {}
     ctx = timed(setup, "ctx_keygen_s", lambda: CkksContext(params, seed=0, device="cuda"))
+    hers = approach == 4
     if streamed:
-        store = timed(setup, "enroll_s", lambda: streaming.enroll_diag_streamed(ctx, cfg, db))
-        sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
+        enroll = streaming.enroll_hers_streamed if hers else streaming.enroll_diag_streamed
+        store = timed(setup, "enroll_s", lambda: enroll(ctx, cfg, db))
+        sender = (streaming.StreamedHersSender if hers else streaming.StreamedDiagonalSender)(
+            ctx, cfg, store)
         say(f"store: {store.num_groups} groups, {store.resident_count()} resident, "
             f"{store.host_count()} in host memory")
     else:
-        ddb = timed(setup, "enroll_s", lambda: enrollers.enroll_diag(ctx, cfg, db))
-        sender = senders.DiagonalSender(ctx, cfg, ddb)
-    receiver = receivers.DiagonalReceiver(ctx, cfg, db.shape[0])
+        enroll = enrollers.enroll_hers if hers else enrollers.enroll_diag
+        sender = senders.make_sender(approach, ctx, cfg,
+                                     timed(setup, "enroll_s", lambda: enroll(ctx, cfg, db)))
+    receiver = receivers.make_receiver(approach, ctx, cfg, db.shape[0])
     timed(setup, "pow2_keys_s", ctx.gen_power_of_two_rotation_keys)
-    timed(setup, "bsgs_keys_s",
+    timed(setup, "sender_keys_s",
           lambda: ctx.gen_rotation_keys(sender.required_rotations(), force=True))
     qcts = timed(setup, "encrypt_query_s", lambda: receiver.encrypt_query(query))
     timed(setup, "first_membership_s", lambda: sender.run_membership(qcts))
@@ -102,6 +109,8 @@ def run(log2n: int, streamed: bool, say, log):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--approach", type=int, choices=(4, 5), default=5,
+                    help="4 HERS, 5 HyDia")
     ap.add_argument("--log2n", type=int, default=16, help="gallery size 2^log2n")
     ap.add_argument("--streamed", action="store_true",
                     help="serve the gallery from the streamed, seed-compressed store")
@@ -115,7 +124,7 @@ def main():
             print(msg, flush=True)
             log.write(msg + "\n")
 
-        run(args.log2n, args.streamed, say, log)
+        run(args.approach, args.log2n, args.streamed, say, log)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each kernel bit-exact against its
 plain torch version on the same inputs, launch errors raised, and the
-whole HyDia slice on the card bit-exact with the same slice on the CPU.
+whole HyDia and HERS slices on the card bit-exact with the same slices on
+the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  This
 file imports neither jax nor tests/conftest.py's jax setup, so on the
@@ -16,6 +17,7 @@ import torch
 from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth, root_of_unity
 from image_matching_tpu.matching.config import MatchConfig
 from image_matching_tpu.utils import io as dio
+from image_matching_tpu_torch.ckks import context as tc
 from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_mac_plain,
                                                    seeded_c0_plain, seeded_pre_plain)
 from image_matching_tpu_torch.matching import senders
@@ -176,6 +178,7 @@ def test_streamed_slice_on_card_matches_cpu(tier):
         qcts = proto.encrypt_query(query)
         mem = proto.membership(qcts)
         idx = proto.index(qcts)
+        proto.decrypt_membership(mem)
         outs[str(d)] = (proto, mem, idx, kernels.counts())
     (pc, mc, ic, cc), (pg, mg, ig, cg) = outs["cpu"], outs[str(dev)]
     store = pg.sender.store
@@ -231,10 +234,168 @@ def test_slice_on_card_matches_cpu():
         outs[str(d)] = (mem, idx, proto, kernels.counts())
     (mc, ic, _, cc), (mg, ig, pg, cg) = outs["cpu"], outs[str(dev)]
     assert all(v == 0 for v in cc.values())
-    # the in-memory DB runs K1-K4; the seeded kernels belong to the streamed store
-    assert all(cg[k] > 0 for k in ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac")), cg
+    # the in-memory DB runs all but the seeded kernels, which belong to the
+    # streamed store (decryption is not in the counted run)
+    assert all(cg[k] > 0 for k in kernels.KERNELS
+               if k not in ("expand_c1", "seeded_pre", "seeded_c0", "decrypt_mac")), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
     assert pg.decrypt_membership(mg) is True
+    assert pg.decrypt_index(ig) == [0]
+
+
+def _ctx(dev, n=512):
+    return CkksContext(SchemeParams.create(ring_dim=n, mult_depth=11, security="none"),
+                       seed=1, device=dev)
+
+
+def _rows(ctx, gen, shape, limbs):
+    q, _ = ctx._qrow(tuple(limbs))
+    return _residues(gen, shape + (len(limbs), ctx.n), q)
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_ntt_strided_and_permuted_loads(n):
+    """K1 reads a slice of limbs in place and gathers through one shared
+    or one per-row automorphism on its way in."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _rows(ctx, gen, (3, 2), range(6))
+    perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in (1, 2, 3)])).to(dev)
+    for a, limbs, perm in [(x[:, 1], tuple(range(6)), None), (x[:, 0, 4:6], (4, 5), perms),
+                           (x[:, 1, :3], (0, 1, 2), perms[:1]), (x[0, 0], tuple(range(6)), None)]:
+        for inverse in (False, True):
+            fn = ctx.plan.inv if inverse else ctx.plan.fwd
+            plain = ctx.plan.inv_plain if inverse else ctx.plan.fwd_plain
+            got = _launched("ntt_inv" if inverse else "ntt_fwd", lambda: fn(a, limbs, perm))
+            assert torch.equal(got, plain(ntt.permute_rows(a, perm), limbs))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_rescale_kernels_match_plain(n):
+    """K7's lift and sub-scale passes around K1, at every level from the
+    top to 2 limbs, for 2 and 3 components."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for l in (ctx.Lq, 9, 2):
+        for k in (2, 3):
+            x = _rows(ctx, gen, (k,), range(l))
+            before = kernels.counts()
+            got = ctx.rescale(tc.Ciphertext(x, 2.0 ** 40)).data
+            after = kernels.counts()
+            assert after["rescale_lift"] == before["rescale_lift"] + 1
+            assert after["sub_scale"] == before["sub_scale"] + 1
+            assert torch.equal(got, tc.rescale_plain(ctx, x))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_moddown_kernels_match_plain(n):
+    """Centred K3 and K7 around K1, with no addend, a relinearization's
+    addend and a rotation's gathered c0 (shared and per row)."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    ctx.gen_rotation_keys([1, 2, 4])
+    gen = torch.Generator(device=dev).manual_seed(8)
+    perms, _ = ctx._rot_rows([1, 2, 4])
+    for l in (ctx.Lq, 4):
+        ext = ctx.ext_limbs(l)
+        comp = _rows(ctx, gen, (3, 2), ext)
+        c = _rows(ctx, gen, (3, 3), range(l))
+        for cm, add, p in [(comp[0, 1], None, None), (comp, c[:, :2], None),
+                           (comp[:1], c[:1, :2], None), (comp, c[:1, :1], perms),
+                           (comp, c[:, :1], perms), (comp[:1], c[:1, :1], perms[1:2])]:
+            got = _launched("sub_scale", lambda: ctx._moddown(cm, l, add, p))
+            assert torch.equal(got, tc.moddown_plain(ctx, cm, l, add, p))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_decompose_kernel_matches_plain(n):
+    """K8 between K1's, at 3, 2 and 1 live digits, from a strided stack
+    with per-row automorphisms and from one row with a shared one."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in (1, 5)])).to(dev)
+    for l in (ctx.Lq, 9, 4):
+        data = _rows(ctx, gen, (2, 2), range(l))
+        for poly, p in [(data[0, 1], None), (data[:, 1], perms), (data[1, 0], perms[1:]),
+                        (data[:, 0], None)]:
+            got = _launched("decompose", lambda: ctx._decompose_extended(poly, l, p))
+            assert torch.equal(got, tc.decompose_plain(ctx, poly, l, p))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_tensor_and_decrypt_kernels_match_plain(n):
+    """K9: products of operands at unequal levels (read in place), the
+    square, and decryption of 2- and 3-component ciphertexts, one and
+    batched."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for l in (ctx.Lq, 5):
+        x = _rows(ctx, gen, (2,), range(l))
+        y = _rows(ctx, gen, (2,), range(ctx.Lq))
+        for a, b in [(x, y), (y, x), (x, None), (y[:, :l], x)]:
+            got = _launched("tensor", lambda: ctx._tensor(a, b))
+            assert torch.equal(got, tc.tensor_plain(ctx, a, b))
+        for data in (y[:, :l], _rows(ctx, gen, (3,), range(l)), _rows(ctx, gen, (4, 3), range(l))):
+            got = _launched("decrypt_mac", lambda: ctx._decrypt_impl(data))
+            assert torch.equal(got, tc.decrypt_plain(ctx, data))
+
+
+@pytest.mark.parametrize("n,B", [(512, 3), (512, 130), (32768, 5)])
+def test_pk_encrypt_kernels_match_plain(n, B):
+    """K10's pre and MAC passes around K1, within one chunk and across
+    chunks, at the top level and below."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    rng = np.random.default_rng(11)
+    for l in (ctx.Lq, 5):
+        q = np.array(ctx.all_primes[:l], dtype=np.int64)[:, None]
+        m = torch.from_numpy((rng.integers(0, 1 << 62, size=(B, l, n)) % q).astype(
+            np.uint32).view(np.int32)).to(dev)
+        v = torch.from_numpy(rng.integers(-1, 2, size=(B, n))).to(dev)
+        e0, e1 = (torch.from_numpy(rng.integers(-20, 21, size=(B, n))).to(dev) for _ in range(2))
+        before = kernels.counts()
+        got = ctx._encrypt_impl(m, v, e0, e1, l)
+        chunks = -(-B // ctx._PK_CHUNK)
+        after = kernels.counts()
+        assert after["pk_pre"] - before["pk_pre"] == after["pk_mac"] - before["pk_mac"] == chunks
+        assert torch.equal(got, tc.pk_encrypt_plain(ctx, m, v, e0, e1, l))
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_hers_on_card_matches_cpu(streamed):
+    """HERS membership and index on the card equal the CPU (plain) run bit
+    for bit, given the same numpy noise, in memory and streamed (2
+    groups, all resident on the card), through every kernel of the path."""
+    dev = _device()
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(4, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(300 if streamed else 40, 64, seed=1)
+    kw = {"streamed": True} if streamed else {}
+    outs = {}
+    for d in ("cpu", dev):
+        ctx = CkksContext(params, seed=7, device=d, **_numpy_noise(params))
+        kernels.reset_counts()
+        proto = MatchingProtocol.setup(4, db, cfg, ctx=ctx, **kw)
+        qcts = proto.encrypt_query(query)
+        mem = proto.membership(qcts)
+        idx = proto.index(qcts)
+        member = proto.decrypt_membership(mem)
+        outs[str(d)] = (proto, mem, idx, member, kernels.counts())
+    (_, mc, ic, _, cc), (pg, mg, ig, member, cg) = outs["cpu"], outs[str(dev)]
+    assert all(v == 0 for v in cc.values())
+    seeded = ("expand_c1", "seeded_pre", "seeded_c0")
+    assert all(cg[k] > 0 for k in kernels.KERNELS if streamed or k not in seeded), cg
+    assert torch.equal(mc.data, mg.data.cpu())
+    for a, b in zip(ic, ig):
+        assert torch.equal(a.data, b.data.cpu())
+    assert member is True
     assert pg.decrypt_index(ig) == [0]

@@ -241,7 +241,7 @@ def test_resident_budget(monkeypatch):
     _, db = dio.gen_dataset(NVEC, DIM, seed=3)
     ctx = TCtx(PARAMS, seed=2)
     gbytes = DIM * ctx.Lq * ctx.n * 4
-    assert streaming._hbm_budget_bytes(ctx, CFG, True) == 0  # CPU: no device tier
+    assert streaming._hbm_budget_bytes(ctx, 0) == 0  # CPU: no device tier
     counts = []
     for budget in (0, int(1.5 * gbytes), None):
         if budget is None:
@@ -253,7 +253,7 @@ def test_resident_budget(monkeypatch):
     store.groups[0], store.resident[0] = store.groups[0].clone(), False
     streaming._promote_resident(store, gbytes + gbytes // 2)
     assert store.resident == [True, False]
-    reserve = streaming._reserve_bytes(ctx, CFG, True)
+    reserve = streaming._reserve_bytes(ctx, CFG, 14, 0)
     # 2 x 8 power-of-two keys (256 slots) + 7 baby + 7 giant steps
     assert reserve == 30 * ctx.dnum * 2 * ctx.Ltot * ctx.n * 4 + 6 * gbytes
 
