@@ -36,9 +36,16 @@ line is printed):
      ciphertexts, a 512-ciphertext query), as phase 3, every kernel but
      K5/K6 launched;
   8. the streamed HERS store at 2^20 (64 groups), as phase 5, every
-     kernel launched.
-The last lines are the card's name and power limit, one JSON line of
-per-kernel results, and the JSON result line.
+     kernel launched;
+  9. Baseline (approach 1), GROTE (approach 2) and Blind-Match (approach 3)
+     in memory at 2^15 vectors, each at its own depth (13, 18, 12), as
+     phase 3; every kernel but K5/K6 launched (and but K2 for Baseline and
+     GROTE).
+K11 (standalone residue arithmetic) must launch on every path; nothing of
+jax or of the JAX package may be imported.  The last lines are the card's
+name and power limit, one JSON line of per-kernel results (with each
+kernel's bound: the larger of its bytes over 3.35 TB/s and its 32-bit
+integer operations over 67 T/s), and the JSON result line.
 """
 
 import gc
@@ -50,13 +57,17 @@ import time
 import numpy as np
 import torch
 
-NVEC = 1 << 16          # in-memory phases
+NVEC = 1 << 16          # in-memory HyDia and HERS
+NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
 NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
 NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
 DIM = 512
 SEED = 0
 SEEDED_KERNELS = ("expand_c1", "seeded_pre", "seeded_c0")  # the streamed store's
-APPROACH = {4: "HERS", 5: "HyDia"}
+APPROACH = {1: "Baseline", 2: "GROTE", 3: "Blind-Match", 4: "HERS", 5: "HyDia"}
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM device memory
+INT_OPS_PER_S = 67e12      # 32-bit lanes outside the tensor cores (float32 peak)
+MUL, ADD = 6, 2            # 32-bit operations per modular product / add
 T0 = time.perf_counter()
 
 
@@ -76,6 +87,21 @@ def cuda_ms(fn, iters=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ntt_ops(rows, n):
+    """Butterflies of `rows` transforms, a Shoup product and two adds each."""
+    return rows * n // 2 * (n.bit_length() - 1) * (MUL + 2 * ADD)
+
+
+def fbc_ops(rows, g, t, n):
+    return rows * n * (g * MUL + g * t * (MUL + ADD) + t * (MUL + ADD))
 
 
 def rand_residues(shape, primes, gen, device):
@@ -99,39 +125,49 @@ def check_kernels(ctx, device):
     n, Lq, l = ctx.n, ctx.Lq, ctx.Lq
     rows = {}
 
-    def record(name, label, got, want, fn, plain_fn):
+    def record(name, label, got, want, fn, plain_fn, nbytes, ops):
+        """Hold one kernel call against its plain version, bit for bit, and
+        time both; nbytes and ops are the work of the call (inputs read
+        once, outputs written once), for its bound."""
         assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape, label
         err = int((got.long() - want.long()).abs().max())
         ms, pms = cuda_ms(fn), cuda_ms(plain_fn)
+        bms, by = bound(nbytes, ops)
         log(f"kernel {name} [{label}]: max_abs_err {err}  kernel {ms:.4f} ms  "
-            f"plain {pms:.4f} ms")
+            f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})")
         assert err == 0, f"{name} [{label}] differs from its plain version"
         r = rows.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if "ms" not in r:  # the first shape listed is the main path's
-            r.update(ms=ms, plain_ms=pms, shape=label)
+            r.update(ms=ms, plain_ms=pms, shape=label, bound_ms=bms, bound_by=by)
 
     plan = ctx.plan
     limbs = tuple(range(ctx.Ltot))
     idx = plan.limb_index(limbs).long()
     x = rand_residues((8, ctx.Ltot, n), P, gen, device)
+    nb, ops = (2 * x.numel() + 2 * ctx.Ltot * n) * 4, ntt_ops(8 * ctx.Ltot, n)
     record("ntt_fwd", "8x20 limbs", plan.fwd(x, limbs), ntt_fwd_plain(x, plan.psis[idx], plan.q[idx]),
-           lambda: plan.fwd(x, limbs), lambda: ntt_fwd_plain(x, plan.psis[idx], plan.q[idx]))
+           lambda: plan.fwd(x, limbs), lambda: ntt_fwd_plain(x, plan.psis[idx], plan.q[idx]),
+           nb, ops)
     record("ntt_inv", "8x20 limbs", plan.inv(x, limbs),
            ntt_inv_plain(x, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]),
            lambda: plan.inv(x, limbs),
-           lambda: ntt_inv_plain(x, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]))
+           lambda: ntt_inv_plain(x, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]), nb, ops)
     del x
 
     qp = P[:Lq]
+    def ct_dot_work(K, blocks):
+        return ((K * 2 + blocks * K * 2 + blocks * 3) * Lq * n * 4,
+                blocks * Lq * n * 4 * K * (MUL + ADD))
+
     A = rand_residues((32, 2, Lq, n), qp, gen, device)
     B = rand_residues((16, 32, 2, Lq, n), qp, gen, device)
     record("ct_dot", "K=32 x 16 blocks", ct_dot(ctx, A, B), ct_dot_plain(ctx, A, B),
-           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B))
+           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B), *ct_dot_work(32, 16))
     A = rand_residues((512, 2, Lq, n), qp, gen, device)
     B = rand_residues((512, 2, Lq, n), qp, gen, device)
     record("ct_dot", "K=512", ct_dot(ctx, A, B), ct_dot_plain(ctx, A, B),
-           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B))
+           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B), *ct_dot_work(512, 1))
     del A, B
 
     grp = tuple(ctx.groups[0])                         # 5 limbs
@@ -139,12 +175,14 @@ def check_kernels(ctx, device):
     c = ctx._fbc_consts(grp, other)
     x = rand_residues((16, len(grp), n), [P[i] for i in grp], gen, device)
     record("fbc", f"{len(grp)}->{len(other)} x16", ctx._fbc(x, grp, other), fbc_plain(x, c),
-           lambda: ctx._fbc(x, grp, other), lambda: fbc_plain(x, c))
+           lambda: ctx._fbc(x, grp, other), lambda: fbc_plain(x, c),
+           16 * (len(grp) + len(other)) * n * 4, fbc_ops(16, len(grp), len(other), n))
     sp, lim = ctx.sp_limbs(), ctx.q_limbs(l)
     c = ctx._fbc_consts(sp, lim)
     x = rand_residues((32, len(sp), n), [P[i] for i in sp], gen, device)
     record("fbc", f"{len(sp)}->{len(lim)} x32", ctx._fbc(x, sp, lim), fbc_plain(x, c),
-           lambda: ctx._fbc(x, sp, lim), lambda: fbc_plain(x, c))
+           lambda: ctx._fbc(x, sp, lim), lambda: fbc_plain(x, c),
+           32 * (len(sp) + len(lim)) * n * 4, fbc_ops(32, len(sp), len(lim), n))
     del x
 
     ext = ctx.ext_limbs(l)
@@ -157,22 +195,27 @@ def check_kernels(ctx, device):
     record("ks_mac", "R=31 hoisted", ctx._ks_mac(digs, keys, l, perms),
            ks_mac_plain(digs, keys, l, Lq, qe, rinve, perms),
            lambda: ctx._ks_mac(digs, keys, l, perms),
-           lambda: ks_mac_plain(digs, keys, l, Lq, qe, rinve, perms))
+           lambda: ks_mac_plain(digs, keys, l, Lq, qe, rinve, perms),
+           (digs.numel() + 31 * ctx.dnum * 2 * E * n + 31 * n + 31 * 2 * E * n) * 4,
+           31 * 2 * E * n * ctx.dnum * (MUL + ADD))
     del digs, keys
 
     # the streamed store's kernels at one DB group: dim 512 ciphertexts
     B, seed, grp = DIM, 1234, 63
     label = f"{B}x{Lq} limbs"
+    threefry = 20 * 4 + 4 * 6  # 20 rounds of add, rotate, xor; key injections
     record("expand_c1", label, ctx.expand_c1(seed, grp, B, Lq),
            uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
            lambda: ctx.expand_c1(seed, grp, B, Lq),
-           lambda: uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32))
+           lambda: uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
+           B * Lq * n * 4, B * Lq * n * (threefry + 2 * MUL))
     hi, lo = (torch.from_numpy(a.view(np.int32)).to(device) for a in ctx.split_coeffs(
         np.random.default_rng(5).integers(-(2 ** 40), 2 ** 40, size=(B, n))))
     e = torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).int()
     record("seeded_pre", label, ctx._seeded_pre(hi, lo, e, Lq),
            seeded_pre_plain(ctx, hi, lo, e, Lq),
-           lambda: ctx._seeded_pre(hi, lo, e, Lq), lambda: seeded_pre_plain(ctx, hi, lo, e, Lq))
+           lambda: ctx._seeded_pre(hi, lo, e, Lq), lambda: seeded_pre_plain(ctx, hi, lo, e, Lq),
+           (3 * B * n + B * Lq * n) * 4, B * Lq * n * (2 * MUL + 3 * ADD))
     x = ctx.plan.fwd(ctx._seeded_pre(hi, lo, e, Lq), ctx.q_limbs(Lq))
     want = seeded_c0_plain(ctx, x, seed, grp)
     # the kernel writes c0 over its input: compare its first call on a
@@ -180,9 +223,12 @@ def check_kernels(ctx, device):
     xs = x.clone()
     record("seeded_c0", label, ctx._seeded_c0(xs, seed, grp), want,
            lambda: ctx._seeded_c0(xs, seed, grp),
-           lambda: seeded_c0_plain(ctx, x, seed, grp))
+           lambda: seeded_c0_plain(ctx, x, seed, grp),
+           (2 * B * Lq * n + Lq * n) * 4, B * Lq * n * (threefry + 3 * MUL + ADD))
     del x, xs, want, hi, lo, e
     check_fused(ctx, device, gen, record, rows)
+    check_residue_ops(ctx, device, gen, record)
+    check_grote_width(device, gen, record)
     return rows
 
 
@@ -193,14 +239,16 @@ def check_fused(ctx, device, gen, record, rows):
     HyDia's batched key switches (R = 15 giant, 31 hoisted rotations)."""
     from image_matching_tpu_torch.ckks import context as tc
 
-    P, n, Lq = ctx.all_primes, ctx.n, ctx.Lq
+    P, n, Lq, S = ctx.all_primes, ctx.n, ctx.Lq, ctx.S
     ext = ctx.ext_limbs(Lq)
+    E = len(ext)
     qp = P[:Lq]
     # K7: rescale (K1 inverse of the top limb, lift, K1, sub-scale)
     x = rand_residues((2, Lq, n), qp, gen, device)
     record("rescale_lift", "rescale 2x14 limbs", ctx.rescale(tc.Ciphertext(x, 1.0)).data,
            tc.rescale_plain(ctx, x), lambda: ctx.rescale(tc.Ciphertext(x, 1.0)),
-           lambda: tc.rescale_plain(ctx, x))
+           lambda: tc.rescale_plain(ctx, x), (2 * Lq + 2 * (Lq - 1)) * n * 4,
+           ntt_ops(2 + 2 * (Lq - 1), n) + 2 * (Lq - 1) * n * 2 * (MUL + ADD))
     # K7: mod-down (K1 inverse of the specials, centred K3, K1, sub-scale),
     # with a relinearization's addend, then a rotation's gathered c0
     perms = torch.from_numpy(np.stack(
@@ -210,7 +258,10 @@ def check_fused(ctx, device, gen, record, rows):
         a = rand_residues((1 if p is not None else R, add, Lq, n), qp, gen, device)
         record("sub_scale", f"mod-down R={R}x2x20 limbs", ctx._moddown(comp, Lq, a, p),
                tc.moddown_plain(ctx, comp, Lq, a, p), lambda: ctx._moddown(comp, Lq, a, p),
-               lambda: tc.moddown_plain(ctx, comp, Lq, a, p))
+               lambda: tc.moddown_plain(ctx, comp, Lq, a, p),
+               (comp.numel() + a.numel() + (R * n if p is not None else 0) + R * 2 * Lq * n) * 4,
+               ntt_ops(R * 2 * (S + Lq), n) + fbc_ops(R * 2, S, Lq, n)
+               + R * 2 * Lq * n * (MUL + 2 * ADD))
     del comp, a
     # K8: decomposition (K1 inverse with the gather, K8, K1 over the stack)
     for R, p in [(1, None), (15, perms[:15])]:
@@ -218,17 +269,23 @@ def check_fused(ctx, device, gen, record, rows):
         record("decompose", f"decompose R={R}x14 limbs", ctx._decompose_extended(poly, Lq, p),
                tc.decompose_plain(ctx, poly, Lq, p),
                lambda: ctx._decompose_extended(poly, Lq, p),
-               lambda: tc.decompose_plain(ctx, poly, Lq, p))
+               lambda: tc.decompose_plain(ctx, poly, Lq, p),
+               (poly.numel() + (R * n if p is not None else 0) + R * ctx.dnum * E * n) * 4,
+               ntt_ops(R * (Lq + ctx.dnum * E), n)
+               + sum(fbc_ops(R, len(g), len(o), n) for g, o in ctx._digits(Lq)))
     del poly
     # K9: tensor product and decryption (MAC + REDC, K1)
     y = rand_residues((2, Lq, n), qp, gen, device)
     record("tensor", "2x14 limbs pair", ctx._tensor(x, y), tc.tensor_plain(ctx, x, y),
-           lambda: ctx._tensor(x, y), lambda: tc.tensor_plain(ctx, x, y))
+           lambda: ctx._tensor(x, y), lambda: tc.tensor_plain(ctx, x, y),
+           7 * Lq * n * 4, Lq * n * (4 * MUL + ADD))
     record("tensor", "square 2x14 limbs", ctx._tensor(x, None), tc.tensor_plain(ctx, x),
-           lambda: ctx._tensor(x, None), lambda: tc.tensor_plain(ctx, x))
+           lambda: ctx._tensor(x, None), lambda: tc.tensor_plain(ctx, x),
+           5 * Lq * n * 4, Lq * n * (3 * MUL + ADD))
     d = rand_residues((3, Lq, n), qp, gen, device)
     record("decrypt_mac", "decrypt 3x14 limbs", ctx._decrypt_impl(d), tc.decrypt_plain(ctx, d),
-           lambda: ctx._decrypt_impl(d), lambda: tc.decrypt_plain(ctx, d))
+           lambda: ctx._decrypt_impl(d), lambda: tc.decrypt_plain(ctx, d),
+           5 * Lq * n * 4, Lq * n * (4 * MUL + 2 * ADD) + ntt_ops(Lq, n))
     del x, y, d
     # K10: public-key encryption of the HERS query, B = 512 (pre, K1, MAC)
     B = DIM
@@ -240,8 +297,76 @@ def check_fused(ctx, device, gen, record, rows):
     torch.cuda.empty_cache()
     record("pk_pre", f"encrypt B={B}x14 limbs", ctx._encrypt_impl(m, v, e0, e1, Lq), want,
            lambda: ctx._encrypt_impl(m, v, e0, e1, Lq),
-           lambda: tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq))
+           lambda: tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq),
+           (B * Lq * n * 4 + 3 * B * n * 8 + 2 * Lq * n * 4 + B * 2 * Lq * n * 4),
+           B * Lq * n * (4 * MUL + 2 * MUL + 3 * ADD) + ntt_ops(3 * B * Lq, n))
     rows["pk_mac"] = dict(rows["pk_pre"])  # one operation, two passes
+    del m, v, e0, e1, want
+    torch.cuda.empty_cache()
+
+
+def check_residue_ops(ctx, device, gen, record):
+    """Phase 2, K11: the standalone residue ops against their plain
+    versions (ops/modmath.py) at the shapes of the compare circuit and of
+    the sums: add, mul_plain and mul_scalar on [2, 14, N]; the row sum of
+    HyDia's 15 giant steps and of 128 rows, one output of Blind-Match's
+    compression at 2^15."""
+    from image_matching_tpu_torch.ops import modmath as mm
+
+    P, n, Lq = ctx.all_primes, ctx.n, ctx.Lq
+    m = ctx._mod(Lq)
+    a = rand_residues((2, Lq, n), P[:Lq], gen, device)
+    b = rand_residues((2, Lq, n), P[:Lq], gen, device)
+    pt = rand_residues((Lq, n), P[:Lq], gen, device)
+    const = ctx._mont_const(987654321, ctx.q_limbs(Lq))
+    el = a.numel()
+    for label, op, y, nbytes, ops in [
+            ("add 2x14 limbs", "add", b, 3 * el * 4, el * ADD),
+            ("mul_plain 2x14 limbs by 14 limbs", "mul", pt, (2 * el + pt.numel()) * 4, el * MUL),
+            ("mul_scalar 2x14 limbs by 14x1", "mul", const, (2 * el + Lq) * 4, el * MUL)]:
+        record("modarith", label, mm.residue_op(op, a, y, m),
+               mm.residue_op_plain(op, a, y, m.q, m.rinv), lambda: mm.residue_op(op, a, y, m),
+               lambda: mm.residue_op_plain(op, a, y, m.q, m.rinv), nbytes, ops)
+    del a, b, pt
+    for R, l in [(15, Lq), (128, Lq - 1)]:
+        rows = rand_residues((R, 2, l, n), P[:l], gen, device)
+        ml = ctx._mod(l)
+        record("mod_sum", f"row sum R={R} x 2x{l} limbs", mm.row_sum(rows, ml),
+               mm.row_sum_plain(rows, ml.q), lambda: mm.row_sum(rows, ml),
+               lambda: mm.row_sum_plain(rows, ml.q), (R + 1) * 2 * l * n * 4,
+               R * 2 * l * n * ADD)
+        del rows
+
+
+def check_grote_width(device, gen, record):
+    """Phase 2 at GROTE's width (depth 18: 21 q limbs, 8 special, the widest
+    parameter set): the mod-down's conversion from 8 special limbs (K3's
+    limit) and the decomposition into 29 extended limbs, at l = 21."""
+    from image_matching_tpu_torch.ckks import context as tc
+    from image_matching_tpu_torch.ckks.context import CkksContext
+    from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
+    from image_matching_tpu_torch.matching.config import MatchConfig
+
+    cfg = MatchConfig()
+    ctx = CkksContext(SchemeParams.create(
+        mult_depth=compute_required_depth(2, cfg.comp_depth, cfg.alpha_depth)),
+        seed=SEED + 2, device=device)
+    P, n, Lq, S = ctx.all_primes, ctx.n, ctx.Lq, ctx.S
+    assert (Lq, S) == (21, 8), (Lq, S)
+    ext = ctx.ext_limbs(Lq)
+    E = len(ext)
+    comp = rand_residues((1, 2, E, n), [P[i] for i in ext], gen, device)
+    a = rand_residues((1, 2, Lq, n), P[:Lq], gen, device)
+    record("sub_scale", f"mod-down R=1x2x{E} limbs (GROTE)", ctx._moddown(comp, Lq, a),
+           tc.moddown_plain(ctx, comp, Lq, a), lambda: ctx._moddown(comp, Lq, a),
+           lambda: tc.moddown_plain(ctx, comp, Lq, a), (comp.numel() + 2 * a.numel()) * 4,
+           ntt_ops(2 * (S + Lq), n) + fbc_ops(2, S, Lq, n))
+    poly = rand_residues((1, Lq, n), P[:Lq], gen, device)
+    record("decompose", f"decompose R=1x{Lq} limbs (GROTE)", ctx._decompose_extended(poly, Lq),
+           tc.decompose_plain(ctx, poly, Lq), lambda: ctx._decompose_extended(poly, Lq),
+           lambda: tc.decompose_plain(ctx, poly, Lq), (poly.numel() + ctx.dnum * E * n) * 4,
+           ntt_ops(Lq + ctx.dnum * E, n))
+    del ctx, comp, a, poly
     torch.cuda.empty_cache()
 
 
@@ -256,7 +381,7 @@ def timed(times, label, fn):
 
 
 def expected_matches(query, db, thr):
-    from image_matching_tpu.matching import vector_utils as vu
+    from image_matching_tpu_torch.matching import vector_utils as vu
     sims = vu.cosine_similarity(vu.normalize(query)[None, :], vu.normalize(db))
     return sims, sorted(int(i) for i in np.nonzero(sims >= thr)[0])
 
@@ -307,9 +432,9 @@ def streamed_phase(approach, cfg, device, smi):
     at 2^20 with the derived device-memory budget, through the user entry
     points.  The kernel counts cover setup, the query's encryption, the
     queries and their decryption."""
-    from image_matching_tpu.utils.io import gen_dataset
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils.io import gen_dataset
 
     name = f"{APPROACH[approach]} streamed 2^{NVEC_STREAM.bit_length() - 1}"
     times = {}
@@ -351,10 +476,10 @@ def pinned_phase(cfg, device, smi):
     """Phase 6: 2^17 vectors with resident_budget=0, so every group crosses
     PCIe on every query; then the same store all resident must give a
     bit-equal membership ciphertext."""
-    from image_matching_tpu.utils.io import gen_dataset
     from image_matching_tpu_torch.matching import streaming
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils.io import gen_dataset
 
     times = {}
     query, db = gen_dataset(NVEC_PINNED, DIM, seed=SEED)
@@ -413,21 +538,22 @@ def require_launched(launches, names, path):
     assert not missing, f"kernels never launched on the {path} path: {missing}"
 
 
-def in_memory_phase(approach, cfg, device, smi):
-    """Phases 3 and 7: `approach` with an in-memory encrypted DB of NVEC
-    vectors.  The kernel counts cover setup, the query's encryption, the
-    queries and their decryption."""
-    from image_matching_tpu.utils.io import gen_dataset
-    from image_matching_tpu_torch.matching import enrollers
+def in_memory_phase(approach, cfg, device, smi, nvec=NVEC):
+    """Phases 3, 7 and 9: `approach` with an in-memory encrypted DB of
+    `nvec` vectors, its context at the approach's own depth.  The kernel
+    counts cover setup, the query's encryption, the queries and their
+    decryption."""
+    from image_matching_tpu_torch.matching import enrollers, protocol
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils.io import gen_dataset
 
-    name = f"{APPROACH[approach]} in-memory 2^{NVEC.bit_length() - 1}"
-    query, db = gen_dataset(NVEC, DIM, seed=SEED)
+    name = f"{APPROACH[approach]} in-memory 2^{nvec.bit_length() - 1}"
+    query, db = gen_dataset(nvec, DIM, seed=SEED)
     times = {}
     # time the enrollment inside setup: the protocol looks the enroller up
     # on its module at call time
-    attr = "enroll_hers" if approach == 4 else "enroll_diag"
+    attr = protocol.ENROLLERS[approach]
     enroll = getattr(enrollers, attr)
 
     def timed_enroll(*a, **k):
@@ -448,6 +574,9 @@ def in_memory_phase(approach, cfg, device, smi):
     found = sorted(proto.decrypt_index(idx))
     launches = kernels.counts()
     times["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    p = proto.ctx.params
+    times.update(q_limbs=p.num_limbs, special=p.num_special,
+                 gallery_gb=proto.sender.db.data.numel() * 4 / 1e9)
     log(f"{name} on {smi}: " + json.dumps(times) + " launches " + json.dumps(launches))
 
     sims, expect = expected_matches(query, db, cfg.match_threshold)
@@ -458,10 +587,10 @@ def in_memory_phase(approach, cfg, device, smi):
     assert found == expect and 0 in found, f"{name}: index differs from the plaintext set"
     t = {}
     scores = timed(t, "similarity_s", lambda: proto.sender.compute_similarity(qcts))
-    vals = proto.receiver.decrypt_scores(scores)[:NVEC]
-    assert np.all(np.isfinite(vals))
+    vals = proto.receiver.decrypt_scores(scores)[:nvec]
+    assert vals.shape == sims.shape and np.all(np.isfinite(vals))
     err = float(np.abs(vals - sims).max())
-    log(f"{name} score parity: max |decrypted - cosine| = {err:.3e} over {NVEC} vectors; "
+    log(f"{name} score parity: max |decrypted - cosine| = {err:.3e} over {nvec} vectors; "
         f"similarity alone {t['similarity_s']:.4f} s")
     assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
     return launches
@@ -477,11 +606,11 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
         sys.exit(2)
-    from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-    from image_matching_tpu.matching.config import MatchConfig
-    from image_matching_tpu.utils import native
     from image_matching_tpu_torch.ckks.context import CkksContext
+    from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
+    from image_matching_tpu_torch.matching.config import MatchConfig
     from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils import native
 
     device = torch.device("cuda:0")
     smi = subprocess.run(
@@ -508,6 +637,7 @@ def main():
     rows = check_kernels(CkksContext(params, seed=SEED + 1, device=device), device)
     free_device()
     in_memory = [k for k in kernels.KERNELS if k not in SEEDED_KERNELS]
+    slot_packing = [k for k in in_memory if k != "ct_dot"]
 
     # phases 3-4: HyDia in memory; 5: streamed at 2^20; 6: forced pinned
     launches = {"hydia_in_memory": in_memory_phase(5, cfg, device, smi)}
@@ -526,7 +656,16 @@ def main():
     launches["hers_streamed"] = streamed_phase(4, cfg, device, smi)
     free_device()
     require_launched(launches["hers_streamed"], kernels.KERNELS, "HERS streamed 2^20")
-    assert "jax" not in sys.modules, "the port's smoke run imported jax"
+    # phase 9: Baseline, GROTE and Blind-Match in memory at 2^15
+    for approach, key, need in [(1, "baseline_in_memory", slot_packing),
+                                (2, "grote_in_memory", slot_packing),
+                                (3, "blind_in_memory", in_memory)]:
+        launches[key] = in_memory_phase(approach, cfg, device, smi, NVEC_SLOTS)
+        free_device()
+        require_launched(launches[key], need, f"{APPROACH[approach]} in-memory 2^15")
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "image_matching_tpu"))
+    assert not imported, f"the port's smoke run imported {imported}"
 
     src = "image_matching_tpu_torch/csrc/"
     ctx_py = "image_matching_tpu/ckks/context.py"
@@ -546,14 +685,19 @@ def main():
         "decrypt_mac": ("tensor.cu", f"{ctx_py}:609"),
         "pk_pre": ("pk_encrypt.cu", f"{ctx_py}:420"),
         "pk_mac": ("pk_encrypt.cu", f"{ctx_py}:420"),
+        "modarith": ("modarith.cu", "image_matching_tpu/ops/modmath.py:90"),
+        "mod_sum": ("modarith.cu", "image_matching_tpu/matching/senders.py:45"),
     }
-    # launches: the streamed HERS run, this slice's main path, which runs
-    # every kernel; launches_by_path adds the other driven paths
+    # launches: the sum over every driven path (each counted from 0 just
+    # before it and read just after its decryption); launches_by_path has
+    # each.  No single PyTorch call computes a modular residue op, an NTT
+    # or a key switch, so library_ms is null throughout.
     out = [{"name": k, "route": "cuda", "source": src + meta[k][0],
-            "replaces": meta[k][1], "launches": launches["hers_streamed"][k],
+            "replaces": meta[k][1], "launches": sum(c[k] for c in launches.values()),
             "launches_by_path": {p: c[k] for p, c in launches.items()},
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
-            "plain_ms": rows[k]["plain_ms"], "shape": rows[k]["shape"]}
+            "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
+            "bound_by": rows[k]["bound_by"], "library_ms": None, "shape": rows[k]["shape"]}
            for k in kernels.KERNELS]
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(smi)

@@ -43,13 +43,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from image_matching_tpu.ckks import encoding
-from image_matching_tpu.ckks.params import SchemeParams, root_of_unity
-
 from ..ops import kernels
 from ..ops import modmath as mm
 from ..ops import prng
 from ..ops.ntt import NttPlan, host_ntt_fwd, permute_rows
+from ..utils import native
+from . import encoding
+from .params import SchemeParams, root_of_unity
 
 R = mm.R
 
@@ -207,22 +207,22 @@ def seeded_c0_plain(ctx: "CkksContext", x: torch.Tensor, seed: int,
 
 
 def rescale_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
-    """Divide [k, l, N] by the top prime q_{l-1} -> [k, l-1, N] (K7 with
-    K1 around its lift pass)."""
+    """Divide [..., k, l, N] by the top prime q_{l-1} -> [..., k, l-1, N]
+    (K7 with K1 around its lift pass)."""
     l = data.shape[-2]
     qt = int(ctx.all_primes[l - 1])
     lim_rest = ctx.q_limbs(l - 1)
     q, rinv = ctx._qrow(lim_rest)
     r2 = ctx.r2_64[: l - 1, None]
     # top limb -> standard-form coefficients < qt
-    top_c = ctx.plan.inv_plain(data[:, l - 1 : l, :], (l - 1,))
+    top_c = ctx.plan.inv_plain(data[..., l - 1 : l, :], (l - 1,))
     top_std = top_c.long() * mm.host_rinv(qt) % qt  # [k, 1, N]
     # centered transfer mod each remaining prime
     pos = mm.reduce_small(top_std, q)
     negv = mm.mod_neg(mm.reduce_small(qt - top_std, q), q)
     t_std = torch.where(top_std <= qt // 2, pos, negv)
     t_eval = ctx.plan.fwd_plain(mm.mont_mul(t_std, r2, q, rinv), lim_rest)
-    diff = mm.mod_sub(data[:, : l - 1, :], t_eval, q)
+    diff = mm.mod_sub(data[..., : l - 1, :], t_eval, q)
     return mm.mont_mul(diff, ctx._qtinv(l)[0], q, rinv)
 
 
@@ -332,16 +332,22 @@ def pk_encrypt_plain(ctx: "CkksContext", m_rns: torch.Tensor, v: torch.Tensor,
 
 class CkksContext:
     """Scheme context + evaluator.  One instance per parameter set, with
-    its tables and keys on ``device``."""
+    its tables and keys on ``device``: the card (``"cuda"``) unless the
+    caller asks for the CPU, where the plain versions run.  Without a GPU
+    the default raises."""
 
     _SPLIT_BITS = 24            # coefficient split: c + OFFSET = hi*2^24 + lo
     _SPLIT_OFFSET = 1 << 47     # |coeff| must stay below this
 
-    def __init__(self, params: SchemeParams, seed: int = 0, device="cpu",
+    # rows per batched keyswitch of a stack rotated by one automorphism:
+    # bounds the digit stack ([rows, dnum, l + S, N]) and the kernels' grids
+    ROW_CHUNK = 128
+
+    def __init__(self, params: SchemeParams, seed: int = 0, device="cuda",
                  noise: Optional[NoiseFn] = None,
                  seeded_noise: Optional[SeededNoiseFn] = None):
         self.params = params
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device)
         n = params.ring_dim
         self.n = n
         self.slots = params.slots
@@ -409,10 +415,19 @@ class CkksContext:
             self._qrow_cache[key] = (self.q64[idx][:, None], self.rinv64[idx][:, None])
         return self._qrow_cache[key]
 
-    def _mont_const(self, value: int, limbs: Sequence[int]) -> torch.Tensor:
-        """Montgomery form of an integer constant per limb, int64 [l, 1]."""
+    def _mod(self, l: int) -> mm.Moduli:
+        """The moduli of limbs 0..l-1 for ``mm.residue_op`` / ``mm.row_sum``."""
+        key = ("moduli", l)
+        if key not in self._const_cache:
+            q, rinv = self._qrow(self.q_limbs(l))
+            self._const_cache[key] = mm.Moduli(q, rinv, self.q32, self.qneg32)
+        return self._const_cache[key]
+
+    def _mont_const(self, value: int, limbs: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Montgomery form of an integer constant per limb, as the pair
+        (int64 [l, 1], int32 [l]) of ``_limb_pair``."""
         v = int(value)
-        return self._limb_pair(("mont", v), limbs, lambda q: v % q * (R % q) % q)[0]
+        return self._limb_pair(("mont", v), limbs, lambda q: v % q * (R % q) % q)
 
     def _limb_pair(self, name, limbs: Sequence[int], fn) -> Tuple[torch.Tensor, torch.Tensor]:
         """fn(q_i) over the given limbs as (int64 [l, 1] for the plain
@@ -829,13 +844,12 @@ class CkksContext:
                                   limbs: Optional[int] = None,
                                   scale: Optional[float] = None) -> torch.Tensor:
         """Host counterpart of ``encrypt_seeded_batch`` through the C++
-        enroller (``image_matching_tpu.utils.native.enroll_group``): c0 as a
+        enroller (``utils.native.enroll_group``): c0 as a
         CPU int32 tensor [B, l, N], no device work.  Its noise is drawn
         from the context's numpy generator, as in the JAX package."""
-        from image_matching_tpu.utils import native
-
         if not native.available():
-            raise RuntimeError("the native host enroller is not built (make -C native)")
+            raise RuntimeError("the native host enroller could not be built "
+                               "(native/imtpu_native.cpp needs a C++ compiler)")
         values = np.atleast_2d(np.asarray(values, dtype=np.float64))
         l = limbs if limbs is not None else self.Lq
         sc = scale if scale is not None else self.fresh_scale
@@ -884,49 +898,52 @@ class CkksContext:
         if abs(math.log2(a) - math.log2(b)) > 1e-6:
             raise ValueError(f"scale mismatch: {a} vs {b}; use align_to")
 
+    # The residue ops below launch K11 for CUDA tensors (``mm.residue_op``)
+    # and run the plain versions for CPU tensors.  Ciphertext data may carry
+    # leading batch axes ([..., k, l, N]) everywhere but in add_scalar and in
+    # the add of ciphertexts with unequal component counts.
+
     def add(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
         l = min(x.limbs, y.limbs)
         x, y = self.drop_to(x, l), self.drop_to(y, l)
         self._check_scales(x.scale, y.scale)
-        q, _ = self._qrow(self.q_limbs(l))
         kx, ky = x.ncomp, y.ncomp
         if kx == ky:
-            return Ciphertext(mm.mod_add(x.data, y.data, q), x.scale)
+            return Ciphertext(mm.residue_op("add", x.data, y.data, self._mod(l)), x.scale)
         big, small = (x, y) if kx > ky else (y, x)
-        head = mm.mod_add(big.data[: small.ncomp], small.data, q)
-        return Ciphertext(torch.cat([head, big.data[small.ncomp:]], dim=0), x.scale)
+        return Ciphertext(mm.residue_op("add", big.data, small.data, self._mod(l),
+                                        head=small.ncomp), x.scale)
 
     def sub(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
         return self.add(x, self.neg(y))
 
     def neg(self, x: Ciphertext) -> Ciphertext:
-        q, _ = self._qrow(self.q_limbs(x.limbs))
-        return Ciphertext(mm.mod_neg(x.data, q), x.scale)
+        return Ciphertext(mm.residue_op("neg", x.data, None, self._mod(x.limbs)), x.scale)
 
     def add_scalar(self, x: Ciphertext, c: float) -> Ciphertext:
         """Add constant c to every slot: constant polynomial, exact at the
-        ciphertext's scale."""
-        lim = self.q_limbs(x.limbs)
-        consts = self._mont_const(int(round(c * x.scale)), lim)
-        q, _ = self._qrow(lim)
-        c0 = mm.mod_add(x.data[0], consts, q)
-        return Ciphertext(torch.cat([c0[None], x.data[1:]], dim=0), x.scale)
+        ciphertext's scale, added to component 0 only."""
+        consts = self._mont_const(int(round(c * x.scale)), self.q_limbs(x.limbs))
+        return Ciphertext(mm.residue_op("add", x.data, consts, self._mod(x.limbs), head=1),
+                          x.scale)
+
+    def mul_scalar_int(self, x: Ciphertext, k: int) -> Ciphertext:
+        """Exact multiply by a (small) integer; no level, no scale change."""
+        consts = self._mont_const(k, self.q_limbs(x.limbs))
+        return Ciphertext(mm.residue_op("mul", x.data, consts, self._mod(x.limbs)), x.scale)
 
     def mul_plain(self, x: Ciphertext, pt: Plaintext) -> Ciphertext:
         if pt.data.shape[-2] < x.limbs:
             x = self.drop_to(x, pt.data.shape[-2])
         l = x.limbs
-        q, rinv = self._qrow(self.q_limbs(l))
-        return Ciphertext(mm.mont_mul(x.data, pt.data[None, :l], q, rinv),
+        return Ciphertext(mm.residue_op("mul", x.data, pt.data[:l], self._mod(l)),
                           x.scale * pt.scale)
 
     def mul_scalar(self, x: Ciphertext, c: float, pt_scale: float) -> Ciphertext:
         """Multiply every slot by real constant c encoded at pt_scale (a
         constant polynomial — no encoding FFT needed)."""
-        lim = self.q_limbs(x.limbs)
-        consts = self._mont_const(int(round(c * pt_scale)), lim)
-        q, rinv = self._qrow(lim)
-        return Ciphertext(mm.mont_mul(x.data, consts[None], q, rinv),
+        consts = self._mont_const(int(round(c * pt_scale)), self.q_limbs(x.limbs))
+        return Ciphertext(mm.residue_op("mul", x.data, consts, self._mod(x.limbs)),
                           x.scale * pt_scale)
 
     def _tensor(self, x: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -964,21 +981,24 @@ class CkksContext:
         if x.limbs == l:
             return x
         assert x.limbs > l
-        return Ciphertext(x.data[:, :l, :], x.scale)
+        return Ciphertext(x.data[..., :l, :], x.scale)
 
     def rescale(self, x: Ciphertext) -> Ciphertext:
         """Divide by the top prime (FIXEDMANUAL RescaleInPlace): on CUDA K1
         inverse of the top limb (read in place), K7's lift pass, K1
-        forward, K7's sub-scale pass; ``rescale_plain`` on the CPU."""
+        forward, K7's sub-scale pass; ``rescale_plain`` on the CPU.  Each
+        polynomial of data [..., l, N] is divided on its own, so any leading
+        axes (components, a batch of ciphertexts) go in one pass."""
         l = x.limbs
         assert l >= 2, "cannot rescale below guard level"
         qt = int(self.all_primes[l - 1])
         if not x.data.is_cuda:
             return Ciphertext(rescale_plain(self, x.data), x.scale / qt)
-        k, _, n = x.data.shape
-        top = self.plan.inv(x.data[:, l - 1 : l, :], (l - 1,))  # [k, 1, N]
+        lead, n = x.data.shape[:-2], self.n
+        k = math.prod(lead)
+        top = self.plan.inv(x.data[..., l - 1 : l, :], (l - 1,))  # [..., 1, N]
         kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
-        t = torch.empty((k, l - 1, n), dtype=torch.int32, device=x.data.device)
+        t = torch.empty((*lead, l - 1, n), dtype=torch.int32, device=x.data.device)
         kernels.launch("imtpu_rescale_lift", "rescale_lift", kernels.ptr(t), kernels.ptr(top),
                        qt, int(self.qneg_np[l - 1]), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r2_32), k, l - 1, n)
@@ -1198,10 +1218,14 @@ class CkksContext:
         return d[0], d[1]
 
     def relinearize(self, x: Ciphertext) -> Ciphertext:
+        """Relinearize [3, l, N], or a batch [B, 3, l, N] in chunks of
+        ``ROW_CHUNK`` batched keyswitches."""
         if x.ncomp == 2:
             return x
         assert x.ncomp == 3
-        return Ciphertext(self.relinearize_stack(x.data[None])[0], x.scale)
+        if x.data.dim() == 3:
+            return Ciphertext(self.relinearize_stack(x.data[None])[0], x.scale)
+        return Ciphertext(self._by_chunks(x.data, 2, self.relinearize_stack), x.scale)
 
     def relinearize_stack(self, data: torch.Tensor) -> torch.Tensor:
         """Relinearize a stack of 3-component ciphertexts [R, 3, l, N] ->
@@ -1218,10 +1242,39 @@ class CkksContext:
     # rotations
     # ------------------------------------------------------------------
 
-    def rotate(self, x: Ciphertext, r: int) -> Ciphertext:
-        """EvalRotate: left-rotate slots by r (requires key for this r).
-        The automorphism is gathered inside the kernels: c1's in the
+    def _by_chunks(self, data: torch.Tensor, ncomp: int, fn) -> torch.Tensor:
+        """fn over data [R, ...] in chunks of ``ROW_CHUNK`` rows, each
+        result [rows, ncomp, l, N] written into one output."""
+        R = data.shape[0]
+        if R <= self.ROW_CHUNK:
+            return fn(data)
+        out = None
+        for i in range(0, R, self.ROW_CHUNK):
+            o = fn(data[i : i + self.ROW_CHUNK])
+            if out is None:
+                out = torch.empty((R, ncomp, *o.shape[2:]), dtype=o.dtype, device=o.device)
+            out[i : i + o.shape[0]] = o
+        return out
+
+    def _rotate_rows(self, data: torch.Tensor, perm: torch.Tensor,
+                     key: torch.Tensor) -> torch.Tensor:
+        """Rotate every row of a stack [R, 2, l, N] by ONE automorphism
+        (perm [N], key [dnum, 2, Ltot, N] shared by all rows, never copied
+        per row): batched keyswitches of ``ROW_CHUNK`` rows.  The
+        automorphism is gathered inside the kernels: c1's in the
         decomposition's inverse NTT, c0's in the mod-down's last pass."""
+        l, perm = data.shape[-2], perm[None]
+
+        def one(d):
+            digs = self._decompose_extended(d[:, 1], l, perm)
+            return self._keyswitch_batch(digs, key, l, add=d[:, :1], add_perms=perm)
+
+        return self._by_chunks(data, 2, one)
+
+    def rotate(self, x: Ciphertext, r: int) -> Ciphertext:
+        """EvalRotate: left-rotate slots by r (requires key for this r);
+        data [2, l, N], or a batch [B, 2, l, N] with every ciphertext
+        rotated by r."""
         if r % self.slots == 0:
             return x
         g = self.rotation_galois(r)
@@ -1229,10 +1282,31 @@ class CkksContext:
             raise KeyError(f"no rotation key for r={r} (g={g})")
         assert x.ncomp == 2
         perm, key = self._rot_entry(g)
-        perm = perm[None]
-        digs = self._decompose_extended(x.data[1], x.limbs, perm)
-        d = self._keyswitch_batch(digs, key, x.limbs, add=x.data[None, :1], add_perms=perm)
-        return Ciphertext(d[0], x.scale)
+        if x.data.dim() == 3:
+            return Ciphertext(self._rotate_rows(x.data[None], perm, key)[0], x.scale)
+        return Ciphertext(self._rotate_rows(x.data, perm, key), x.scale)
+
+    def rotate_any(self, x: Ciphertext, r: int) -> Ciphertext:
+        """One direct keyswitch when a key for exactly r exists (e.g. the
+        merge-chain amounts requested via Sender.required_rotations), else
+        the signed power-of-two decomposition."""
+        if r % self.slots == 0:
+            return x
+        if self.rotation_galois(r) in self.rot_keys:
+            return self.rotate(x, r)
+        return self.binary_rotate(x, r)
+
+    def binary_rotate(self, x: Ciphertext, r: int) -> Ciphertext:
+        """Arbitrary rotation via signed nearest-power-of-two steps using
+        only +-2^k keys (reference binaryRotate)."""
+        factor = r
+        while factor != 0:
+            sign = 1 if factor > 0 else -1
+            step = 2 ** int(round(math.log2(abs(factor))))
+            if (step * sign) % self.slots != 0:
+                x = self.rotate(x, step * sign)
+            factor -= step * sign
+        return x
 
     def hoisted_precompute(self, x: Ciphertext) -> torch.Tensor:
         """EvalFastRotationPrecompute: digit-decompose+extend c1 once."""
@@ -1253,17 +1327,22 @@ class CkksContext:
         return self._keyswitch_batch(digs, keys, x.limbs, perms, add=x.data[None, :1],
                                      add_perms=perms)
 
-    def _rot_rows(self, rots: Sequence[int]):
-        """Stacked (perms [R, N], keys [R, ...]) for the given rotations,
-        from the LOWEST set holding all of them (a zero-copy prefix view
-        when they are a prefix of that set)."""
+    def _rot_locate(self, rots: Sequence[int]) -> Tuple[int, List[int]]:
+        """(set, rows) of the given rotations in the LOWEST key set holding
+        all of them."""
         locs = [self.rot_keys[self.rotation_galois(r)] for r in rots]
         common = set(locs[0])
         for d in locs[1:]:
             common &= set(d)
         assert common, "rotations must share one key set"
         sid = min(common)
-        rows = [d[sid] for d in locs]
+        return sid, [d[sid] for d in locs]
+
+    def _rot_rows(self, rots: Sequence[int]):
+        """Stacked (perms [R, N], keys [R, ...]) for the given rotations,
+        from the LOWEST set holding all of them (a zero-copy prefix view
+        when they are a prefix of that set)."""
+        sid, rows = self._rot_locate(rots)
         perms, keys = self._rot_sets[sid]
         if rows == list(range(len(rows))):
             return perms[: len(rows)], keys[: len(rows)]
@@ -1286,22 +1365,42 @@ class CkksContext:
         digs = self._decompose_extended(data[:, 1], l, perms)
         return self._keyswitch_batch(digs, keys, l, add=data[:, :1], add_perms=perms)
 
+    def rotate_rows_binary(self, data: torch.Tensor, rots: Sequence[int]) -> torch.Tensor:
+        """Rotate every row of a [R, 2, l, N] stack by its OWN amount using
+        only the +2^k keys: one bit stage per bit set in some amount, in
+        ascending k.  A stage rotates the rows whose bit is set (one shared
+        key, batched keyswitches) and passes the others through; rotating
+        only the selected rows gives the JAX package's select of a full
+        rotated stack, residue for residue."""
+        amounts = [r % self.slots for r in rots]
+        assert len(amounts) == data.shape[0]
+        nbits = int(math.log2(self.slots))
+        used = [k for k in range(nbits) if any((a >> k) & 1 for a in amounts)]
+        if not used:
+            return data
+        sid, rows = self._rot_locate([1 << k for k in used])
+        perms, keys = self._rot_sets[sid]
+        out = data
+        for k, row in zip(used, rows):
+            sel = torch.tensor([i for i, a in enumerate(amounts) if (a >> k) & 1],
+                               dtype=torch.int64, device=data.device)
+            rot = self._rotate_rows(out.index_select(0, sel), perms[row], keys[row])
+            out = out.index_copy(0, sel, rot)
+        return out
+
     def eval_sum(self, x: Ciphertext, m: int) -> Ciphertext:
         """Every slot j becomes sum of slots j..j+m-1 (cyclic): log2(m)
-        rotate-and-add steps over the power-of-two key-set prefix."""
+        rotate-and-add steps over the power-of-two key-set prefix; data
+        [2, l, N] or a batch [B, 2, l, N] (every ciphertext summed)."""
         if m <= 1:
             return x
         steps = int(math.log2(m))
         perms, keys = self._rot_rows([1 << k for k in range(steps)])
-        l = x.limbs
-        q, _ = self._qrow(self.q_limbs(l))
-        carry = x.data
+        mod = self._mod(x.limbs)
+        carry = x.data if x.data.dim() == 4 else x.data[None]
         for k in range(steps):
-            perm = perms[k : k + 1]
-            digs = self._decompose_extended(carry[1], l, perm)
-            rot = self._keyswitch_batch(digs, keys[k], l, add=carry[None, :1], add_perms=perm)
-            carry = mm.mod_add(carry, rot[0], q)
-        return Ciphertext(carry, x.scale)
+            carry = mm.residue_op("add", carry, self._rotate_rows(carry, perms[k], keys[k]), mod)
+        return Ciphertext(carry if x.data.dim() == 4 else carry[0], x.scale)
 
     # ------------------------------------------------------------------
     # scale alignment

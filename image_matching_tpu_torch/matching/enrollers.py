@@ -1,12 +1,10 @@
-"""Encrypted-database enrollment for HyDia, approach 5, and HERS,
-approach 4 (port of the DiagDB and HersDB parts of
+"""Encrypted-database enrollment, one packing layout per approach (port of
 image_matching_tpu/matching/enrollers.py).
 
-The plaintext layouts (``diag_group_vals``, ``hers_group_vals``) are the
-JAX package's numpy code; what changes is that the ciphertexts are torch
-tensors on the context's device, written chunk by chunk into one
-preallocated stack so the database is never held twice.  The other
-layouts (approaches 1-3) are not ported yet (ROADMAP A9).
+The plaintext layouts are the JAX package's numpy code; what changes is
+that the ciphertexts are torch tensors on the context's device, written
+chunk by chunk into one preallocated stack so the database is never held
+twice.
 """
 
 from __future__ import annotations
@@ -18,10 +16,27 @@ from typing import Optional
 import numpy as np
 import torch
 
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.vector_utils import normalize
-
 from ..ckks.context import CkksContext
+from .config import MatchConfig
+from .vector_utils import normalize
+
+
+@dataclasses.dataclass
+class BaseDB:
+    """Vector-sequential layout (approaches 1-2): ciphertext i holds
+    slots/dim whole vectors back to back."""
+    data: torch.Tensor  # [num_batches, 2, L, N]
+    num_vectors: int
+    scale: float
+
+
+@dataclasses.dataclass
+class BlindDB:
+    """Chunk-column layout (approach 3): ciphertext (m, j) holds chunk j of
+    slots/chunk_len vectors."""
+    data: torch.Tensor  # [num_matrices, chunks_per_vector, 2, L, N]
+    num_vectors: int
+    scale: float
 
 
 @dataclasses.dataclass
@@ -57,6 +72,30 @@ def _encrypt_stack(ctx: CkksContext, values: np.ndarray, chunk: int = 64) -> tor
     for i in range(0, B, chunk):
         out[i : i + chunk] = ctx.encrypt_batch(values[i : i + chunk])
     return out
+
+
+def enroll_base(ctx: CkksContext, cfg: MatchConfig, db: np.ndarray) -> BaseDB:
+    dim = cfg.vector_dim
+    per = ctx.slots // dim
+    nvec = db.shape[0]
+    nb = math.ceil(nvec / per)
+    flat = np.zeros((nb * per, dim))
+    flat[:nvec] = normalize(db)
+    return BaseDB(_encrypt_stack(ctx, flat.reshape(nb, per * dim)), nvec, ctx.fresh_scale)
+
+
+def enroll_blind(ctx: CkksContext, cfg: MatchConfig, db: np.ndarray) -> BlindDB:
+    dim, cl = cfg.vector_dim, cfg.chunk_len
+    cpb = ctx.slots // cl  # vectors ("chunks") per batch
+    cpv = dim // cl        # chunks per vector
+    nvec = db.shape[0]
+    nm = math.ceil(nvec / cpb)
+    full = np.zeros((nm * cpb, dim))
+    full[:nvec] = normalize(db)
+    # values[m, j, i*cl + t] = full[m*cpb + i][j*cl + t]
+    vals = full.reshape(nm, cpb, cpv, cl).transpose(0, 2, 1, 3).reshape(nm * cpv, ctx.slots)
+    data = _encrypt_stack(ctx, vals).reshape(nm, cpv, 2, -1, ctx.n)
+    return BlindDB(data, nvec, ctx.fresh_scale)
 
 
 def hers_group_vals(rows: np.ndarray, batch: int) -> np.ndarray:

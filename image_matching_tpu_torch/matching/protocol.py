@@ -1,7 +1,7 @@
 """End-to-end protocol orchestration: enroller + sender + receiver wired
-together (port of image_matching_tpu/matching/protocol.py; approaches 4
-and 5, each with an in-memory or a streamed, seed-compressed encrypted
-DB)."""
+together (port of image_matching_tpu/matching/protocol.py): approaches 1-5
+with an in-memory encrypted DB, approaches 4 and 5 also with a streamed,
+seed-compressed one."""
 
 from __future__ import annotations
 
@@ -10,13 +10,15 @@ from typing import List, Optional
 
 import numpy as np
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.matching.config import MatchConfig
-
 from ..ckks.context import CkksContext, Ciphertext
+from ..ckks.params import SchemeParams, compute_required_depth
 from . import enrollers, receivers, senders, streaming
+from .config import MatchConfig
 
 APPROACH_NAMES = {1: "Baseline", 2: "GROTE", 3: "Blind", 4: "HERS", 5: "Diagonal"}
+# looked up on the module at call time, so a caller may wrap one (timing)
+ENROLLERS = {1: "enroll_base", 2: "enroll_base", 3: "enroll_blind", 4: "enroll_hers",
+             5: "enroll_diag"}
 
 
 @dataclasses.dataclass
@@ -30,18 +32,20 @@ class MatchingProtocol:
     @staticmethod
     def setup(approach: int, database: np.ndarray, cfg: Optional[MatchConfig] = None,
               params: Optional[SchemeParams] = None, seed: int = 0,
-              ctx: Optional[CkksContext] = None, device="cpu",
+              ctx: Optional[CkksContext] = None, device="cuda",
               streamed: bool = False, **stream_kw) -> "MatchingProtocol":
         """Build the context (depth from computeRequiredDepth) on `device`
-        unless one is given, generate keys, enroll the database.  With
-        streamed=True the DB is enrolled seed-compressed into a DiagStore
-        (approach 5) or a HersStore (approach 4) by
-        ``streaming.enroll_diag_streamed`` / ``enroll_hers_streamed``, which
-        take ``stream_kw``, and served by the matching streamed sender."""
-        if approach in senders.NOT_PORTED:
-            raise NotImplementedError(senders.NOT_PORTED[approach])
-        if approach not in (4, 5):
+        (the card unless the caller asks for the CPU) unless one is given,
+        generate keys, enroll the database.  With streamed=True the DB is
+        enrolled seed-compressed into a DiagStore (approach 5) or a
+        HersStore (approach 4) by ``streaming.enroll_diag_streamed`` /
+        ``enroll_hers_streamed``, which take ``stream_kw``, and served by
+        the matching streamed sender; approaches 1-3 have no streamed
+        store, as in the JAX package."""
+        if approach not in senders.SENDERS:
             raise ValueError(f"approach must be 1..5, got {approach}")
+        if streamed and approach not in (4, 5):
+            raise ValueError("streaming is implemented for approaches 4 (HERS) and 5 (HyDia)")
         cfg = cfg or MatchConfig()
         if ctx is None:
             if params is None:
@@ -56,7 +60,7 @@ class MatchingProtocol:
             store = streaming.enroll_diag_streamed(ctx, cfg, database, **stream_kw)
             sender = streaming.StreamedDiagonalSender(ctx, cfg, store)
         else:
-            enroll = enrollers.enroll_hers if approach == 4 else enrollers.enroll_diag
+            enroll = getattr(enrollers, ENROLLERS[approach])
             sender = senders.make_sender(approach, ctx, cfg, enroll(ctx, cfg, database))
         receiver = receivers.make_receiver(approach, ctx, cfg, database.shape[0])
         ctx.gen_power_of_two_rotation_keys()

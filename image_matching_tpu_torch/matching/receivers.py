@@ -1,16 +1,16 @@
 """Receivers: client-side query encryption and result decryption/decoding
-(port of image_matching_tpu/matching/receivers.py, approaches 4 and 5)."""
+(port of image_matching_tpu/matching/receivers.py, approaches 1-5)."""
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 import numpy as np
 
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.vector_utils import normalize
-
 from ..ckks.context import CkksContext, Ciphertext
+from .config import MatchConfig
+from .vector_utils import normalize
 
 
 class HersReceiver:
@@ -55,7 +55,8 @@ class HersReceiver:
 
 
 class BaseReceiver(HersReceiver):
-    """Query replicated every vector_dim slots into one ciphertext."""
+    """Approach 1: the query replicated every vector_dim slots into one
+    ciphertext."""
 
     def encrypt_query(self, query: np.ndarray) -> List[Ciphertext]:
         q = normalize(np.asarray(query, dtype=np.float64))
@@ -68,9 +69,86 @@ class DiagonalReceiver(BaseReceiver):
     rules."""
 
 
+class GroteReceiver(BaseReceiver):
+    """Approach 2: decodes the group-testing row and column flags."""
+
+    def decrypt_index(self, cts: Sequence[Ciphertext]) -> List[int]:
+        ctx = self.ctx
+        batch = ctx.slots
+        row_len = 2 ** math.ceil(math.log2(batch) / 2)
+        col_len = batch // row_len
+        n_score = math.ceil(self.num_vectors / batch)
+        n_row = math.ceil(n_score / row_len)
+        n_col = math.ceil(n_score / col_len)
+        if n_row + n_col != len(cts):
+            raise ValueError(f"GROTE index: {len(cts)} ciphertexts, expected "
+                             f"{n_row} rows + {n_col} columns")
+        row_vals = np.concatenate([ctx.decrypt(c) for c in cts[:n_row]])
+        col_vals = np.concatenate([ctx.decrypt(c) for c in cts[n_row:]])
+        rows = np.nonzero(row_vals >= 1.0)[0]
+        cols = np.nonzero(col_vals >= 1.0)[0]
+        out = []
+        for r in rows:
+            rm = r // col_len
+            for c in cols:
+                cm = c // row_len
+                if rm == cm:
+                    idx = int(r) * row_len + int(c) % row_len
+                    if idx < self.num_vectors:
+                        out.append(idx)
+        return out
+
+
+class BlindReceiver(HersReceiver):
+    """Approach 3: the query split into chunks, each replicated across the
+    batch; the index decode inverts the compression permutation."""
+
+    def encrypt_query(self, query: np.ndarray) -> List[Ciphertext]:
+        cl = self.cfg.chunk_len
+        cpv = self.cfg.vector_dim // cl
+        q = normalize(np.asarray(query, dtype=np.float64))
+        reps = self.ctx.slots // cl
+        vals = np.stack([np.tile(q[i * cl : (i + 1) * cl], reps) for i in range(cpv)])
+        data = self.ctx.encrypt_batch(vals)
+        return [Ciphertext(data[i], self.ctx.fresh_scale) for i in range(cpv)]
+
+    def decrypt_index(self, cts: Sequence[Ciphertext]) -> List[int]:
+        batch = self.ctx.slots
+        cl = self.cfg.chunk_len
+        spb = batch // cl  # scores per batch
+        out = []
+        for i, ct in enumerate(cts):
+            vals = self.ctx.decrypt(ct)
+            for j in np.nonzero(vals >= 1.0)[0]:
+                j = int(j)
+                idx = i * batch + j // cl + (j % cl) * spb
+                if idx < self.num_vectors:
+                    out.append(idx)
+        return sorted(out)
+
+    def decrypt_scores(self, cts: Sequence[Ciphertext]) -> np.ndarray:
+        """Scores in vector order: slot j of ciphertext i holds the score
+        of vector i*batch + j//cl + (j%cl)*spb, inverted here."""
+        batch = self.ctx.slots
+        cl = self.cfg.chunk_len
+        spb = batch // cl
+        j = np.arange(batch)
+        order = j // cl + (j % cl) * spb  # slot -> vector offset
+        outs = []
+        for ct in cts:
+            vals = np.asarray(self.ctx.decrypt(ct))
+            inv = np.empty(batch, vals.dtype)
+            inv[order] = vals
+            outs.append(inv)
+        return np.concatenate(outs)
+
+
+RECEIVERS = {1: BaseReceiver, 2: GroteReceiver, 3: BlindReceiver, 4: HersReceiver,
+             5: DiagonalReceiver}
+
+
 def make_receiver(approach: int, ctx: CkksContext, cfg: MatchConfig,
                   num_vectors: int) -> HersReceiver:
-    if approach not in (4, 5):
-        raise NotImplementedError(f"approach {approach} receiver is not ported yet: ROADMAP A9")
-    cls = HersReceiver if approach == 4 else DiagonalReceiver
-    return cls(ctx, cfg, num_vectors)
+    if approach not in RECEIVERS:
+        raise ValueError(f"approach must be 1..5, got {approach}")
+    return RECEIVERS[approach](ctx, cfg, num_vectors)

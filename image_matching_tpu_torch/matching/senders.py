@@ -1,28 +1,31 @@
 """Senders: server-side homomorphic similarity + compare pipelines for
-HyDia, approach 5, and HERS, approach 4 (port of
-image_matching_tpu/matching/senders.py).
+the five approaches (port of image_matching_tpu/matching/senders.py):
+Baseline (1), GROTE (2), Blind-Match (3), HERS (4) and HyDia (5).
 
 ``ct_dot``, the diagonal contraction, launches kernel K2
 (``csrc/ct_dot.cu``) for CUDA tensors and runs ``ct_dot_plain`` for CPU
-tensors.  The JAX module's jit runners and segments have no counterpart
-(PyTorch runs eagerly), and its ``vmap``/``lax.map`` over score
-ciphertexts and DB groups become Python loops or a leading batch axis.
+tensors; the modular sums of many rows launch K11's row sum
+(``mm.row_sum``).  The JAX module's jit runners and segments have no
+counterpart (PyTorch runs eagerly), and its ``vmap``/``lax.map`` over
+score ciphertexts, DB batches and groups become Python loops or a leading
+batch axis in chunks of ``CkksContext.ROW_CHUNK``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from image_matching_tpu.matching.config import MatchConfig
-
 from ..ckks import poly_eval
 from ..ckks.context import CkksContext, Ciphertext
 from ..ops import kernels
 from ..ops import modmath as mm
-from .enrollers import DiagDB, HersDB
+from . import packing
+from .config import MatchConfig
+from .enrollers import BaseDB, BlindDB, DiagDB, HersDB
 
 
 def ct_dot_plain(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -80,15 +83,25 @@ class Sender:
 
     def _compare_many(self, scores: List[Ciphertext]) -> List[Ciphertext]:
         """chebyshevCompare over each score ciphertext."""
-        thr, depth = self.cfg.match_threshold, self.cfg.comp_depth
+        return self._compare_many_with(scores, self.cfg.match_threshold)
+
+    def _compare_many_with(self, scores: List[Ciphertext], thr: float) -> List[Ciphertext]:
+        depth = self.cfg.comp_depth
         return [poly_eval.chebyshev_compare(self.ctx, s, thr, depth) for s in scores]
 
     def _membership_reduce(self, flags: List[Ciphertext]) -> Ciphertext:
-        """EvalAddManyInPlace + EvalSum(batch)."""
+        """EvalAddManyInPlace + EvalSum(batch): flags of one shape and
+        scale are summed in one pass (K11's row sum on CUDA)."""
         ctx = self.ctx
         acc = flags[0]
-        for f in flags[1:]:
-            acc = ctx.add(acc, f)
+        if len(flags) > 1 and all(f.data.shape == acc.data.shape for f in flags):
+            for f in flags[1:]:
+                ctx._check_scales(acc.scale, f.scale)
+            acc = Ciphertext(mm.row_sum(torch.stack([f.data for f in flags]),
+                                        ctx._mod(acc.limbs)), acc.scale)
+        else:
+            for f in flags[1:]:
+                acc = ctx.add(acc, f)
         return ctx.eval_sum(acc, ctx.slots)
 
     def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
@@ -144,10 +157,8 @@ def diag_group_score(ctx: CkksContext, Q: torch.Tensor, dbd: torch.Tensor, n1: i
     inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
     # giant rotations: one batched keyswitch over stacked rows
     rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)], prod_scale)
-    q, _ = ctx._qrow(ctx.q_limbs(inners.shape[-2]))
-    summed = inners[0]
-    for r in rot:
-        summed = mm.mod_add(summed, r, q)
+    mod = ctx._mod(inners.shape[-2])
+    summed = mm.residue_op("add", inners[0], mm.row_sum(rot, mod), mod)
     return ctx.rescale_score(Ciphertext(summed, prod_scale))
 
 
@@ -213,10 +224,7 @@ def hers_matrix_score(ctx: CkksContext, cfg: MatchConfig, Q: torch.Tensor, dbd: 
     outs = [ctx.rescale_score(ctx.relinearize(ctx.mul(Ciphertext(Q[j], q_scale),
                                                       Ciphertext(dbd[j], db_scale))))
             for j in range(Q.shape[0])]
-    acc = outs[0].data
-    q, _ = ctx._qrow(ctx.q_limbs(acc.shape[-2]))
-    for o in outs[1:]:
-        acc = mm.mod_add(acc, o.data, q)
+    acc = mm.row_sum(torch.stack([o.data for o in outs]), ctx._mod(outs[0].limbs))
     return Ciphertext(acc, outs[0].scale)
 
 
@@ -235,18 +243,148 @@ class HersSender(Sender):
                 for dbd in self.db.data]  # [dim, 2, l, N] per matrix
 
 
-NOT_PORTED = {
-    1: "approach 1 (Baseline) is not ported yet: ROADMAP A9",
-    2: "approach 2 (GROTE) is not ported yet: ROADMAP A9",
-    3: "approach 3 (Blind-Match) is not ported yet: ROADMAP A9",
-}
+class BaseSender(Sender):
+    """Approach 1 (Baseline): sequential DB, one inner product per batch
+    ciphertext, then the order-preserving merge."""
+
+    def __init__(self, ctx, cfg, db: BaseDB):
+        super().__init__(ctx, cfg, db.num_vectors)
+        self.db = db
+
+    def required_rotations(self) -> List[int]:
+        # direct keys for the merge chain: one keyswitch per step instead of
+        # the signed power-of-two decomposition (ctx.rotate_any)
+        return packing.merge_chain_rotations(self.ctx.slots, self.cfg.vector_dim)
+
+    def _raw_scores(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        """Per batch ciphertext: the product with the query, relinearize,
+        EvalSum(dim) BEFORE rescaling (its rotate-add noise stays far below
+        the product scale), rescale_score; over a leading batch axis in
+        chunks of ``ROW_CHUNK`` ciphertexts."""
+        ctx, dim, qct = self.ctx, self.cfg.vector_dim, query[0]
+        out: List[Ciphertext] = []
+        for i in range(0, self.db.data.shape[0], ctx.ROW_CHUNK):
+            rows = self.db.data[i : i + ctx.ROW_CHUNK]
+            prod = torch.stack([ctx.mul(qct, Ciphertext(d, self.db.scale)).data for d in rows])
+            r = ctx.relinearize(Ciphertext(prod, qct.scale * self.db.scale))
+            r = ctx.rescale_score(ctx.eval_sum(r, dim))
+            out += [Ciphertext(d, r.scale) for d in r.data]
+        return out
+
+    def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        return packing.merge_ciphers(self.ctx, self._raw_scores(query), self.cfg.vector_dim)
+
+
+def grote_row_len(slots: int) -> int:
+    """Row length of GROTE's near-square arrangement of the scores."""
+    return 2 ** math.ceil(math.log2(slots) / 2)
+
+
+class GroteSender(BaseSender):
+    """Approach 2 (GROTE): baseline scores + alpha-norm group testing over a
+    near-square arrangement."""
+
+    def required_rotations(self) -> List[int]:
+        # base merge chain + the alpha-row merge chain (row_len dimension)
+        row_len = grote_row_len(self.ctx.slots)
+        return sorted(set(BaseSender.required_rotations(self)
+                          + packing.merge_chain_rotations(self.ctx.slots, row_len)))
+
+    def _alpha_squares(self, ct: Ciphertext) -> Ciphertext:
+        ctx = self.ctx
+        for _ in range(self.cfg.alpha_depth):
+            ct = ctx.rescale(ctx.relinearize(ctx.square(ct)))
+        return ct
+
+    def _alpha_product(self, s: Ciphertext) -> Ciphertext:
+        """s^(2^alpha_depth) times s, relinearized (at s's level when the
+        squares' level is lower)."""
+        ctx = self.ctx
+        a = self._alpha_squares(s)
+        l = min(a.limbs, s.limbs)
+        return ctx.mul_relin(ctx.drop_to(a, l), ctx.drop_to(s, l))
+
+    def alpha_norm_rows(self, scores: List[Ciphertext], row_len: int) -> List[Ciphertext]:
+        """reference alphaNormRows: per score ciphertext (one at a time, the
+        width cap of the JAX package's batch), the alpha product, EvalSum
+        over a row before the rescale, then the merge of the rows."""
+        ctx = self.ctx
+        alist = [ctx.rescale(ctx.eval_sum(self._alpha_product(s), row_len)) for s in scores]
+        return packing.merge_ciphers(ctx, alist, row_len)
+
+    def alpha_norm_columns(self, scores: List[Ciphertext], row_len: int) -> List[Ciphertext]:
+        """reference alphaNormColumns: per score ciphertext the alpha
+        product, the doubling rotate-add chain over the rows at the
+        un-rescaled product scale, the first-row mask, two rescales; then
+        the columns packed by the combine tree."""
+        ctx = self.ctx
+        batch = ctx.slots
+        rmask = np.zeros(batch)
+        rmask[:row_len] = 1.0
+        alist = []
+        for s in scores:
+            a = self._alpha_product(s)
+            j = row_len
+            while j < batch:
+                a = ctx.add(a, ctx.binary_rotate(a, -j))
+                j *= 2
+            m = ctx.encode_cached(("grote_rowmask", row_len), rmask, a.limbs, ctx.params.scale)
+            alist.append(ctx.rescale(ctx.rescale(ctx.mul_plain(a, m))))
+        if len(alist) == 1:
+            return alist
+        out_n = math.ceil(len(scores) * row_len / batch)
+        return packing._tree_pack(ctx, alist, row_len, out_n)
+
+    def membership_scenario(self, query: List[Ciphertext]) -> Ciphertext:
+        scores = self.compute_similarity(query)
+        if self.cfg.faithful_grote:
+            # the reference computes colCipher here and never uses it: the
+            # eager port computes it, waits for it and discards it, so the
+            # timed membership pays the reference's work
+            cols = self.alpha_norm_columns(scores, grote_row_len(self.ctx.slots))
+            if cols[0].data.is_cuda:
+                torch.cuda.synchronize(cols[0].data.device)
+            del cols
+        return self._membership_reduce(self._compare_many(scores))
+
+    def index_scenario(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        row_len = grote_row_len(self.ctx.slots)
+        scores = self.compute_similarity(query)
+        rows = self.alpha_norm_rows(scores, row_len)
+        cols = self.alpha_norm_columns(scores, row_len)
+        thr = self.cfg.match_threshold
+        for _ in range(self.cfg.alpha_depth):
+            thr = thr * thr
+        return self._compare_many_with(rows, thr) + self._compare_many_with(cols, thr)
+
+
+class BlindSender(Sender):
+    """Approach 3 (Blind-Match): chunked DB, per matrix the chunk
+    contraction (K2), relinearize, log rotate-add over the chunk, then the
+    compression."""
+
+    def __init__(self, ctx, cfg, db: BlindDB):
+        super().__init__(ctx, cfg, db.num_vectors)
+        self.db = db
+
+    def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
+        ctx, cl = self.ctx, self.cfg.chunk_len
+        Q = torch.stack([c.data for c in query])  # [cpv, 2, l, N]
+        prod_scale = query[0].scale * self.db.scale
+        scores: List[Ciphertext] = []
+        for i in range(0, self.db.data.shape[0], ctx.ROW_CHUNK):
+            t3 = ct_dot(ctx, Q, self.db.data[i : i + ctx.ROW_CHUNK])  # [m, 3, l, N]
+            ct = ctx.relinearize(Ciphertext(t3, prod_scale))
+            # log rotate-add over the chunk at the full product scale
+            ct = ctx.rescale_score(ctx.eval_sum(ct, cl))
+            scores += [Ciphertext(d, ct.scale) for d in ct.data]
+        return packing.compress_ciphers(ctx, scores, cl)
+
+
+SENDERS = {1: BaseSender, 2: GroteSender, 3: BlindSender, 4: HersSender, 5: DiagonalSender}
 
 
 def make_sender(approach: int, ctx: CkksContext, cfg: MatchConfig, db) -> Sender:
-    if approach in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[approach])
-    if approach == 4:
-        return HersSender(ctx, cfg, db)
-    if approach != 5:
+    if approach not in SENDERS:
         raise ValueError(f"approach must be 1..5, got {approach}")
-    return DiagonalSender(ctx, cfg, db)
+    return SENDERS[approach](ctx, cfg, db)

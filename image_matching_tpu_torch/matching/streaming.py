@@ -34,12 +34,11 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.matching.vector_utils import normalize
-
 from ..ckks.context import CkksContext, Ciphertext
 from . import senders
+from .config import MatchConfig
 from .enrollers import diag_bsgs_n1, diag_group_vals, hers_group_vals
+from .vector_utils import normalize
 
 ENGINES = ("device", "pinned", "native")
 

@@ -49,15 +49,18 @@ _ENTRIES = {
     "imtpu_decrypt_mac": "ppiiipppiii",
     "imtpu_pk_pre": "ppppppppiii",
     "imtpu_pk_mac": "ppppppiii",
+    "imtpu_modarith": "ppipiiiiiiipp",
+    "imtpu_mod_sum": "ppiiiiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
 # launch counters: one per kernel, the NTT counted per direction and the
 # two-pass kernels (K6 seeded encryption, K7 division by a modulus, K9
-# tensor product / decrypt MAC, K10 public-key encryption) per pass
+# tensor product / decrypt MAC, K10 public-key encryption, K11 standalone
+# residue arithmetic: elementwise / row sum) per pass
 KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
            "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale", "decompose",
-           "tensor", "decrypt_mac", "pk_pre", "pk_mac")
+           "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith", "mod_sum")
 _counts = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -153,6 +156,17 @@ def lib():
         handle.imtpu_error_string.argtypes = [ctypes.c_int]
         _lib = handle
     return _lib
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where none is available
+    raises here, so an entry point never carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA GPU is available. The port runs on the card "
+            "by default; pass device='cpu' to run the plain versions on the CPU.")
+    return dev
 
 
 def ptr(t) -> int:

@@ -15,13 +15,21 @@ exists only because the TPU has no 64-bit multiply).  Per-limb constants
 are int64 tensors broadcastable against the data (``[l, 1]`` against
 ``[..., l, N]``): ``q`` and ``rinv`` = R^{-1} mod q.
 
-The CUDA kernels use the device-function versions in ``csrc/modmath.cuh``.
+The CUDA kernels use the device-function versions in ``csrc/modmath.cuh``;
+the standalone residue ops between kernels (``residue_op``, ``row_sum``)
+dispatch on the tensor's device: kernel K11 (``csrc/modarith.cu``) for a
+CUDA tensor, the plain versions here for a CPU tensor.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
+
+from . import kernels
 
 R = 1 << 32
 
@@ -70,6 +78,108 @@ def mont_dot(a, b, dim, q, rinv, chunk: int = 64):
         part = (ak * bk % q).sum(dim)
         acc = part if acc is None else acc + part
     return (acc % q * rinv % q).int()
+
+
+# ---------------------------------------------------------------------------
+# K11: standalone residue arithmetic (csrc/modarith.cu) for CUDA tensors,
+# the functions above for CPU tensors: the tensor's device decides.
+# ---------------------------------------------------------------------------
+
+OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3}
+
+
+@dataclasses.dataclass(frozen=True)
+class Moduli:
+    """The moduli of limbs 0..l-1: int64 [l, 1] ``q`` and ``rinv`` for the
+    plain versions, and the context's int32 tables of every prime
+    (``q32``, ``qneg32``, indexed by limb) for K11."""
+
+    q: torch.Tensor
+    rinv: torch.Tensor
+    q32: torch.Tensor
+    qneg32: torch.Tensor
+
+
+def residue_op_plain(op: str, a, b, q, rinv, head: Optional[int] = None):
+    """Plain version of ``residue_op``: the JAX package's mod_add, mod_sub,
+    mod_neg or mont_mul (b a tensor broadcastable against a, or a per-limb
+    constant pair whose int64 half is used)."""
+    if isinstance(b, tuple):
+        b = b[0]
+    fn = {"add": lambda x: mod_add(x, b, q), "sub": lambda x: mod_sub(x, b, q),
+          "neg": lambda x: mod_neg(x, q), "mul": lambda x: mont_mul(x, b, q, rinv)}[op]
+    if head is None or head >= a.shape[0]:
+        return fn(a)
+    return torch.cat([fn(a[:head]), a[head:].int()])
+
+
+def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = None):
+    """out = a + b, a - b, -a (b None) or the Montgomery product a * b * R^-1
+    mod q (op "add", "sub", "neg", "mul") over residues a [..., l, N] of
+    limbs 0..l-1.  b is a tensor of a's shape, an [l, N] plane broadcast
+    over a's leading axes (a plaintext), or a per-limb constant given as the
+    pair (int64 [l, 1], int32 [l]).  With ``head`` (a [k, l, N]), the op
+    applies to a[:head] (b then has a[:head]'s shape or broadcasts) and
+    a[head:] passes through.  Kernel K11 for CUDA tensors, the plain version
+    for CPU tensors."""
+    if not a.is_cuda:
+        return residue_op_plain(op, a, b, m.q, m.rinv, head)
+    l, n = a.shape[-2], a.shape[-1]
+    if op not in OPS or l > m.q32.numel() or (head is not None and a.dim() != 3):
+        raise ValueError(f"residue_op: {op} on {tuple(a.shape)} (head {head})")
+    src, B, a_bstride = kernels.row_blocks(a)
+    head_el = B * l * n if head is None else min(head, a.shape[0]) * l * n
+    bt, b_bstride, b_mode = None, 0, 0
+    if op != "neg":
+        if isinstance(b, tuple):
+            bt, b_mode = b[1].contiguous(), 2
+            if bt.numel() != l:
+                raise ValueError(f"residue_op: per-limb constant of {bt.numel()} limbs, data {l}")
+        elif b.dim() == 2 and a.dim() > 2:
+            bt, b_mode = b.contiguous(), 1
+            if tuple(bt.shape) != (l, n):
+                raise ValueError(f"residue_op: plane {tuple(b.shape)} against {tuple(a.shape)}")
+        else:
+            want = a.shape if head is None else (min(head, a.shape[0]),) + tuple(a.shape[1:])
+            if tuple(b.shape) != tuple(want):
+                raise ValueError(f"residue_op: operand {tuple(b.shape)} against {tuple(want)}")
+            bt, _, b_bstride = kernels.row_blocks(b)
+        kernels.check_cuda("residue_op", bt, contiguous=b_mode != 0)
+    kernels.check_cuda("residue_op", src, contiguous=False)
+    kernels.check_cuda("residue_op", m.q32, m.qneg32)
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    kernels.launch("imtpu_modarith", "modarith", kernels.ptr(out), kernels.ptr(src), a_bstride,
+                   kernels.ptr(bt), b_bstride, b_mode, OPS[op], head_el, B, l, n,
+                   kernels.ptr(m.q32), kernels.ptr(m.qneg32))
+    return out
+
+
+def row_sum_plain(rows, q):
+    """Plain version of ``row_sum``: the JAX package's chain of mod_adds."""
+    acc = rows[0]
+    for r in rows[1:]:
+        acc = mod_add(acc, r, q)
+    return acc
+
+
+def row_sum(rows: torch.Tensor, m: Moduli) -> torch.Tensor:
+    """Sum over the leading axis of rows [R, ..., l, N] mod q -> [..., l, N]:
+    K11's row-sum pass for CUDA tensors (64-bit sums reduced once: the same
+    canonical residues), the plain version for CPU tensors."""
+    if not rows.is_cuda:
+        return row_sum_plain(rows, m.q)
+    l, n = rows.shape[-2], rows.shape[-1]
+    if rows.dim() < 3 or l > m.q32.numel():
+        raise ValueError(f"row_sum: rows {tuple(rows.shape)}")
+    if not rows[0].is_contiguous():
+        rows = rows.contiguous()
+    R, B = rows.shape[0], rows[0].numel() // (l * n)
+    kernels.check_cuda("row_sum", rows, contiguous=False)
+    kernels.check_cuda("row_sum", m.q32)
+    out = torch.empty(rows.shape[1:], dtype=torch.int32, device=rows.device)
+    kernels.launch("imtpu_mod_sum", "mod_sum", kernels.ptr(out), kernels.ptr(rows),
+                   rows.stride(0), R, B, l, n, kernels.ptr(m.q32))
+    return out
 
 
 # ---------------------------------------------------------------------------

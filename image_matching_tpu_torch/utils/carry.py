@@ -2,10 +2,12 @@
 
 Lets both packages compute on the same keys and ciphertexts: a context's
 secret, public, relinearization and rotation keys (with the galois ->
-{set: row} map that picks among key sets), a DiagDB or HersDB, a streamed
-DiagStore or HersStore, and ciphertexts.
+{set: row} map that picks among key sets), a BaseDB, BlindDB, DiagDB or
+HersDB, a streamed DiagStore or HersStore, and ciphertexts.
 Residues arrive as uint32 (the JAX dtype) and are stored as int32 with
-the same bits.  Only numpy arrays cross: this module never imports jax.
+the same bits, on the card unless ``device`` says otherwise (the stores
+follow their context's device).  Only numpy arrays cross: this module
+never imports jax.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 from ..ckks.context import Ciphertext, CkksContext
-from ..matching.enrollers import DiagDB, HersDB
+from ..matching.enrollers import BaseDB, BlindDB, DiagDB, HersDB
 from ..matching.streaming import DiagStore, HersStore, SeededStore
+from ..ops import kernels
 from ..ops import modmath as mm
 
 
@@ -55,21 +58,35 @@ def load_context_state(ctx: CkksContext, *, s_eval: np.ndarray, pk_b: np.ndarray
     ctx._pow2_rots = list(pow2_rots)
 
 
-def ciphertext(data: np.ndarray, scale: float, device="cpu") -> Ciphertext:
+def _residues(data: np.ndarray, device) -> torch.Tensor:
+    return mm.to_tensor(data, kernels.resolve_device(device))
+
+
+def ciphertext(data: np.ndarray, scale: float, device="cuda") -> Ciphertext:
     """A JAX ciphertext's data [k, l, N] (uint32) and scale."""
-    return Ciphertext(mm.to_tensor(data, device), float(scale))
+    return Ciphertext(_residues(data, device), float(scale))
+
+
+def base_db(data: np.ndarray, num_vectors: int, scale: float, device="cuda") -> BaseDB:
+    """A JAX BaseDB's fields ([num_batches, 2, L, N] uint32 data)."""
+    return BaseDB(_residues(data, device), int(num_vectors), float(scale))
+
+
+def blind_db(data: np.ndarray, num_vectors: int, scale: float, device="cuda") -> BlindDB:
+    """A JAX BlindDB's fields ([num_matrices, chunks_per_vector, 2, L, N]
+    uint32 data)."""
+    return BlindDB(_residues(data, device), int(num_vectors), float(scale))
 
 
 def diag_db(data: np.ndarray, num_vectors: int, scale: float, bsgs: bool,
-            n1: int, device="cpu") -> DiagDB:
+            n1: int, device="cuda") -> DiagDB:
     """A JAX DiagDB's fields ([groups, dim, 2, L, N] uint32 data)."""
-    return DiagDB(mm.to_tensor(data, device), int(num_vectors), float(scale),
-                  bool(bsgs), int(n1))
+    return DiagDB(_residues(data, device), int(num_vectors), float(scale), bool(bsgs), int(n1))
 
 
-def hers_db(data: np.ndarray, num_vectors: int, scale: float, device="cpu") -> HersDB:
+def hers_db(data: np.ndarray, num_vectors: int, scale: float, device="cuda") -> HersDB:
     """A JAX HersDB's fields ([num_matrices, dim, 2, L, N] uint32 data)."""
-    return HersDB(mm.to_tensor(data, device), int(num_vectors), float(scale))
+    return HersDB(_residues(data, device), int(num_vectors), float(scale))
 
 
 def _fill(store: SeededStore, groups: Sequence[np.ndarray]) -> SeededStore:

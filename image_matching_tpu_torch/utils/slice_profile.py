@@ -1,13 +1,14 @@
-"""Where the time goes in the port's HyDia and HERS paths on one GPU.
+"""Where the time goes in the port's matching paths on one GPU.
 
     python3 -m image_matching_tpu_torch.utils.slice_profile [--approach 5] [--log2n 16] [--streamed]
 
-Sets up HyDia (approach 5) or HERS (--approach 4) at production
-parameters (an in-memory DB, or with --streamed the seed-compressed store
-under the derived device-memory budget) step by step, timing keygen,
-enrollment, rotation keys and the query's encryption; times similarity,
-compare and the final EvalSum of membership, plus
-whole membership and index calls, three times each after a first call; then runs
+Sets up HyDia (approach 5), HERS (--approach 4), Baseline (1), GROTE (2) or
+Blind-Match (3) at production parameters (an in-memory DB, or for 4 and 5
+with --streamed the seed-compressed store under the derived device-memory
+budget) step by step, timing keygen, enrollment, rotation keys and the
+query's encryption; times similarity, compare and the final EvalSum of
+membership, plus whole membership and index calls, three times each after
+a first call; then runs
 torch.profiler over one membership and one similarity and reports device
 kernel time, busy share (kernel time over the profiled wall time) and the
 time and launches of each hand-written kernel.  Prints the summary and
@@ -24,18 +25,17 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.utils.io import gen_dataset
-
 from ..ckks.context import CkksContext
-from ..matching import enrollers, receivers, senders, streaming
+from ..ckks.params import SchemeParams, compute_required_depth
+from ..matching import enrollers, protocol, receivers, senders, streaming
+from ..matching.config import MatchConfig
 from ..ops import kernels
+from .io import gen_dataset
 
 OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
         "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
         "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
-        "pk_mac_kernel")
+        "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel")
 
 
 def timed(out, label, fn):
@@ -52,7 +52,8 @@ def run(approach: int, log2n: int, streamed: bool, say, log):
                          capture_output=True, text=True, check=True).stdout.strip()
     say(f"{smi}; torch {torch.__version__}")
     cfg = MatchConfig()
-    params = SchemeParams.create(mult_depth=compute_required_depth(approach, cfg.comp_depth))
+    params = SchemeParams.create(
+        mult_depth=compute_required_depth(approach, cfg.comp_depth, cfg.alpha_depth))
     query, db = gen_dataset(1 << log2n, cfg.vector_dim, seed=0)
     kernels.lib()
     setup = {}
@@ -66,7 +67,7 @@ def run(approach: int, log2n: int, streamed: bool, say, log):
         say(f"store: {store.num_groups} groups, {store.resident_count()} resident, "
             f"{store.host_count()} in host memory")
     else:
-        enroll = enrollers.enroll_hers if hers else enrollers.enroll_diag
+        enroll = getattr(enrollers, protocol.ENROLLERS[approach])
         sender = senders.make_sender(approach, ctx, cfg,
                                      timed(setup, "enroll_s", lambda: enroll(ctx, cfg, db)))
     receiver = receivers.make_receiver(approach, ctx, cfg, db.shape[0])
@@ -109,13 +110,15 @@ def run(approach: int, log2n: int, streamed: bool, say, log):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--approach", type=int, choices=(4, 5), default=5,
-                    help="4 HERS, 5 HyDia")
+    ap.add_argument("--approach", type=int, choices=(1, 2, 3, 4, 5), default=5,
+                    help="1 Baseline, 2 GROTE, 3 Blind-Match, 4 HERS, 5 HyDia")
     ap.add_argument("--log2n", type=int, default=16, help="gallery size 2^log2n")
     ap.add_argument("--streamed", action="store_true",
                     help="serve the gallery from the streamed, seed-compressed store")
     ap.add_argument("--out", default="build/slice_profile.log")
     args = ap.parse_args()
+    if args.streamed and args.approach not in (4, 5):
+        ap.error("--streamed serves approaches 4 and 5 only")
     if not torch.cuda.is_available():
         sys.exit("slice_profile: needs a CUDA device")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

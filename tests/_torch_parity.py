@@ -2,14 +2,36 @@
 JAX package's encryption noise for the port, and numpy views of JAX and
 port state so both packages can be compared bit for bit."""
 
+import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
+from image_matching_tpu_torch.ckks.params import SchemeParams as TParams
+from image_matching_tpu_torch.matching.config import MatchConfig as TConfig
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.utils import carry
+
+# Under pytest-xdist the workers share the machine's cores: each worker's
+# torch takes its share instead of every core (oversubscribed thread pools
+# slow every worker's plain-torch kernels).
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+
+def port_params(params) -> TParams:
+    """The port's own SchemeParams with the fields of the JAX package's."""
+    return TParams(**dataclasses.asdict(params))
+
+
+def port_cfg(cfg) -> TConfig:
+    """The port's own MatchConfig with the fields of the JAX package's."""
+    return TConfig(**dataclasses.asdict(cfg))
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
@@ -64,19 +86,23 @@ def carry_context(jctx, tctx):
         pow2_rots=jctx._pow2_rots)
 
 
-def protocol_pair(cfg, params, database, query, seed=7):
-    """The same HyDia protocol set up in both packages from one seed: the
-    port takes the JAX noise, so keys, DB and query agree bit for bit.
-    Returns the two protocols, the two query ciphertext lists and the JAX
-    similarity-segment output (the jit that membership and index reuse)."""
+def protocol_pair(cfg, params, database, query, seed=7, approach=5):
+    """The same protocol (HyDia unless ``approach`` says otherwise) set up
+    in both packages from one seed, each with its own SchemeParams and
+    MatchConfig of the same fields (the JAX package's are given): the port
+    runs on the CPU and takes the JAX noise, so keys, DB and query agree bit
+    for bit.  Returns the two protocols, the two query ciphertext lists and
+    the JAX similarity-segment output (the jit that membership and index
+    reuse) with its scale."""
     from image_matching_tpu.ckks.context import CkksContext as JCtx
     from image_matching_tpu.matching.protocol import MatchingProtocol as JProto
     from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol as TProto
 
-    jp = JProto.setup(5, database, cfg, ctx=JCtx(params, seed=seed))
-    tp = TProto.setup(5, database, cfg,
-                      ctx=TCtx(params, seed=seed, noise=jax_noise(params.sigma)))
+    jp = JProto.setup(approach, database, cfg, ctx=JCtx(params, seed=seed))
+    tp = TProto.setup(approach, database, port_cfg(cfg),
+                      ctx=TCtx(port_params(params), seed=seed, device="cpu",
+                               noise=jax_noise(params.sigma)))
     jq, tq = jp.encrypt_query(query), tp.encrypt_query(query)
     qstack = jnp.stack([c.data for c in jq])
     jsim, meta = jp.sender._similarity_segment(qstack, jp.sender.db.data)

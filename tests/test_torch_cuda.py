@@ -1,11 +1,12 @@
 """The port's CUDA kernels on the card: each kernel bit-exact against its
 plain torch version on the same inputs, launch errors raised, and the
-whole HyDia and HERS slices on the card bit-exact with the same slices on
-the CPU.
+whole HyDia, HERS, Baseline, GROTE and Blind-Match slices on the card
+bit-exact with the same slices on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  This
-file imports neither jax nor tests/conftest.py's jax setup, so on the
-machine with the card (which has no jax) it runs as
+file imports only the port: neither jax, nor the JAX package, nor
+tests/conftest.py's jax setup, so on the machine with the card (which has
+no jax) it runs as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -14,16 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from image_matching_tpu.ckks.params import SchemeParams, compute_required_depth, root_of_unity
-from image_matching_tpu.matching.config import MatchConfig
-from image_matching_tpu.utils import io as dio
 from image_matching_tpu_torch.ckks import context as tc
 from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_mac_plain,
                                                    seeded_c0_plain, seeded_pre_plain)
+from image_matching_tpu_torch.ckks.params import (SchemeParams, compute_required_depth,
+                                                  root_of_unity)
 from image_matching_tpu_torch.matching import senders
+from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
+from image_matching_tpu_torch.ops import modmath as mm
 from image_matching_tpu_torch.ops import ntt, prng
+from image_matching_tpu_torch.utils import io as dio
 
 pytestmark = pytest.mark.cuda
 
@@ -392,10 +395,83 @@ def test_hers_on_card_matches_cpu(streamed):
         outs[str(d)] = (proto, mem, idx, member, kernels.counts())
     (_, mc, ic, _, cc), (pg, mg, ig, member, cg) = outs["cpu"], outs[str(dev)]
     assert all(v == 0 for v in cc.values())
-    seeded = ("expand_c1", "seeded_pre", "seeded_c0")
-    assert all(cg[k] > 0 for k in kernels.KERNELS if streamed or k not in seeded), cg
+    # in memory: one matrix, one score, one flag, so no row sum of flags
+    skip = () if streamed else ("expand_c1", "seeded_pre", "seeded_c0", "mod_sum")
+    assert all(cg[k] > 0 for k in kernels.KERNELS if k not in skip), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
     assert member is True
     assert pg.decrypt_index(ig) == [0]
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_modarith_kernels_match_plain(n):
+    """K11: add, sub, neg and the Montgomery product with an operand of the
+    same shape (read in place from a dropped view), a plaintext plane and
+    a per-limb constant, the head-only forms, and the row sum at R = 1,
+    15 and 128 (rows read through a stride)."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for l in (ctx.Lq, 5):
+        m = ctx._mod(l)
+        a = _rows(ctx, gen, (3, 2), range(ctx.Lq))[..., :l, :]  # a view of l limbs
+        b = _rows(ctx, gen, (3, 2), range(l))
+        plane = _rows(ctx, gen, (), range(l))
+        const = ctx._mont_const(123456789, ctx.q_limbs(l))
+        cases = [("add", a, b, None), ("sub", a, b, None), ("neg", a, None, None),
+                 ("mul", a, b, None), ("mul", a, plane, None), ("mul", a, const, None),
+                 ("add", a, const, None), ("add", a[0], const, 1), ("add", a[0], b[0, :1], 1)]
+        for op, x, y, head in cases:
+            got = _launched("modarith", lambda: mm.residue_op(op, x, y, m, head=head))
+            yp = None if y is None else (y if isinstance(y, tuple) else y.cpu())
+            yp = (yp[0].cpu(), yp[1].cpu()) if isinstance(yp, tuple) else yp
+            want = mm.residue_op_plain(op, x.cpu(), yp, m.q.cpu(), m.rinv.cpu(), head)
+            assert torch.equal(got.cpu(), want), (op, l, head)
+        for R in (1, 15, 128):
+            rows = _rows(ctx, gen, (R, 2, 2), range(l))[:, 1]  # row stride > row size
+            got = _launched("mod_sum", lambda: mm.row_sum(rows, m))
+            assert torch.equal(got.cpu(), mm.row_sum_plain(rows.cpu(), m.q.cpu())), R
+
+
+@pytest.mark.parametrize("approach", [1, 2, 3])
+def test_approaches_on_card_match_cpu(approach):
+    """Baseline, GROTE and Blind-Match membership and index on the card
+    equal the CPU (plain) run bit for bit, given the same numpy noise,
+    through every kernel of the path (K2 and K11's row sum only for
+    Blind-Match at this size)."""
+    dev = _device()
+    depth = 10 if approach == 2 else 8
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=depth)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(
+        approach, depth, cfg.alpha_depth), security="none")
+    query, db = dio.gen_dataset(40, 64, seed=1)
+    outs = {}
+    for d in ("cpu", dev):
+        ctx = CkksContext(params, seed=7, device=d, **_numpy_noise(params))
+        kernels.reset_counts()
+        proto = MatchingProtocol.setup(approach, db, cfg, ctx=ctx)
+        qcts = proto.encrypt_query(query)
+        mem = proto.membership(qcts)
+        idx = proto.index(qcts)
+        member = proto.decrypt_membership(mem)
+        outs[str(d)] = (proto, mem, idx, member, kernels.counts())
+    (_, mc, ic, _, cc), (pg, mg, ig, member, cg) = outs["cpu"], outs[str(dev)]
+    assert all(v == 0 for v in cc.values())
+    # Baseline and GROTE: one merged score, one flag, so no row sum of flags
+    skip = {"expand_c1", "seeded_pre", "seeded_c0"} | (
+        {"ct_dot", "mod_sum"} if approach != 3 else set())
+    assert all(cg[k] > 0 for k in kernels.KERNELS if k not in skip), cg
+    assert torch.equal(mc.data, mg.data.cpu())
+    for a, b in zip(ic, ig):
+        assert torch.equal(a.data, b.data.cpu())
+    assert member is True
+    assert pg.decrypt_index(ig) == [0]
+
+
+def test_default_device_is_the_card():
+    """Without a device argument the entry points run on the card."""
+    _device()
+    p = SchemeParams.create(ring_dim=512, mult_depth=2, security="none")
+    assert CkksContext(p, seed=1).device.type == "cuda"

@@ -28,7 +28,7 @@ from image_matching_tpu_torch.ops import kernels
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.utils import carry
 
-from _torch_parity import _jax_noise, assert_same
+from _torch_parity import _jax_noise, assert_same, port_params
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
 LEVELS = [14, 9, 4]  # 3, 2 and 1 live digits of dnum 3
@@ -37,7 +37,7 @@ RNG = np.random.default_rng(11)
 
 @pytest.fixture(scope="module")
 def ctxs():
-    jctx, tctx = JCtx(PARAMS, seed=1), TCtx(PARAMS, seed=1)
+    jctx, tctx = JCtx(PARAMS, seed=1), TCtx(port_params(PARAMS), seed=1, device="cpu")
     for c in (jctx, tctx):
         c.gen_power_of_two_rotation_keys()
         c.gen_rotation_keys([3, 5, 7], force=True)
@@ -183,7 +183,7 @@ def test_rotations_below_top_level(ctxs, l):
     jctx, tctx = ctxs
     x = _res(jctx, (2,), range(l))
     jx = JCt(jnp.asarray(x), 2.0 ** 30)
-    tx = carry.ciphertext(x, 2.0 ** 30)
+    tx = carry.ciphertext(x, 2.0 ** 30, device="cpu")
     assert_same(jctx.rotate(jx, 3).data, tctx.rotate(tx, 3).data)
     jd, td = jctx.hoisted_precompute(jx), tctx.hoisted_precompute(tx)
     assert_same(jd, td)

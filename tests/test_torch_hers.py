@@ -28,7 +28,8 @@ from image_matching_tpu_torch.matching import enrollers, receivers, senders, str
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.utils import carry
 
-from _torch_parity import assert_same, carry_context, jax_noise, jax_seeded_noise, u32
+from _torch_parity import (assert_same, carry_context, jax_noise, jax_seeded_noise, port_cfg,
+                           port_params, u32)
 
 DIM, NVEC = 64, 40
 DIMS = {"faithful": 16}  # the per-term mode runs dim products, relinearizations
@@ -52,8 +53,16 @@ def _params(mode):
     return SchemeParams.create(ring_dim=512, mult_depth=depth, security="none")
 
 
+def _tcfg(mode):
+    return port_cfg(_cfg(mode))
+
+
+def _tctx(mode, seed):
+    return TCtx(port_params(_params(mode)), seed=seed, device="cpu")
+
+
 def _port_ctx(params, seed=7):
-    return TCtx(params, seed=seed, noise=jax_noise(params.sigma),
+    return TCtx(port_params(params), seed=seed, device="cpu", noise=jax_noise(params.sigma),
                 seeded_noise=jax_seeded_noise(params.sigma))
 
 
@@ -76,7 +85,7 @@ def _pair(mode, **stream):
             del os.environ["IMTPU_STORE_DIR"]
         else:
             os.environ["IMTPU_STORE_DIR"] = old
-    tp = MatchingProtocol.setup(4, db, cfg, ctx=_port_ctx(params), **stream)
+    tp = MatchingProtocol.setup(4, db, port_cfg(cfg), ctx=_port_ctx(params), **stream)
     return jp, tp, jp.encrypt_query(query), tp.encrypt_query(query), query, db
 
 
@@ -157,7 +166,7 @@ def test_membership_false_when_no_match():
     db = rng.integers(-99, 100, size=(NVEC, DIM)).astype(np.float64)  # no plant
     sims, _ = _expected(query, db)
     assert np.all(sims < 0.44 - 0.05), "fixture accidentally contains a match"
-    proto = MatchingProtocol.setup(4, db, _cfg("default"), ctx=TCtx(_params("default"), seed=3))
+    proto = MatchingProtocol.setup(4, db, _tcfg("default"), ctx=_tctx("default", 3))
     assert proto.decrypt_membership(proto.membership(proto.encrypt_query(query))) is False
 
 
@@ -165,12 +174,13 @@ def test_carried_hers_db_reproduces_jax(pairs):
     """Keys, HersDB and query carried from the JAX objects into a port
     context of another seed give the JAX scores."""
     jp, _, jq, *_ = _get(pairs, "default")
-    ctx = TCtx(_params("default"), seed=3)
+    ctx = _tctx("default", 3)
     carry_context(jp.ctx, ctx)
     d = jp.sender.db
-    sender = senders.HersSender(ctx, _cfg("default"),
-                                carry.hers_db(u32(d.data), d.num_vectors, d.scale))
-    scores = sender.compute_similarity([carry.ciphertext(u32(c.data), c.scale) for c in jq])
+    sender = senders.HersSender(ctx, _tcfg("default"),
+                                carry.hers_db(u32(d.data), d.num_vectors, d.scale, device="cpu"))
+    scores = sender.compute_similarity([carry.ciphertext(u32(c.data), c.scale, device="cpu")
+                                        for c in jq])
     assert_same(jp.sender.compute_similarity(jq)[0].data, scores[0].data)
 
 
@@ -224,12 +234,13 @@ def test_streamed_decisions(spair):
 def test_carried_store_serves_jax_similarity(spair):
     jp, _, jq, *_ = spair
     js = jp.sender.store
-    ctx = TCtx(_params("default"), seed=3)
+    ctx = _tctx("default", 3)
     carry_context(jp.ctx, ctx)
     store = carry.hers_store(ctx, [u32(g) for g in js.groups], js.num_vectors, js.scale, js.seed)
     assert store.resident_count() == 2
-    sender = streaming.StreamedHersSender(ctx, _cfg("default"), store)
-    scores = sender.compute_similarity([carry.ciphertext(u32(c.data), c.scale) for c in jq])
+    sender = streaming.StreamedHersSender(ctx, _tcfg("default"), store)
+    scores = sender.compute_similarity([carry.ciphertext(u32(c.data), c.scale, device="cpu")
+                                        for c in jq])
     jsim, _ = jp.sender._similarity_stream(jq)
     assert_same(jsim, torch.stack([s.data for s in scores]))
 
@@ -238,7 +249,7 @@ def test_reserve_holds_the_query():
     """The HERS store's device reserve: only the power-of-two keys, but
     room for the dim-ciphertext query and the sender's stacked copy of it
     (two groups' worth each) beside the six groups of working set."""
-    ctx = TCtx(_params("default"), seed=2)
+    ctx = _tctx("default", 2)
     gbytes = DIM * ctx.Lq * ctx.n * 4
     kbytes = ctx.dnum * 2 * ctx.Ltot * ctx.n * 4
-    assert streaming._reserve_bytes(ctx, _cfg("default"), 0, 4) == 16 * kbytes + 10 * gbytes
+    assert streaming._reserve_bytes(ctx, _tcfg("default"), 0, 4) == 16 * kbytes + 10 * gbytes

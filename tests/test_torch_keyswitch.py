@@ -17,9 +17,10 @@ from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.utils import carry
 
-from _torch_parity import assert_same, carry_context, jax_noise, u32
+from _torch_parity import assert_same, carry_context, jax_noise, port_params, u32
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=6, security="none")
+TPARAMS = port_params(PARAMS)  # the port's own copy
 # rotations 1 and 2 get a second key (force=True) in a later set: selection
 # rules decide which key a rotation uses, and the keys of the two sets differ
 EXTRA_ROTS = [1, 2, 3, 5, 7]
@@ -29,7 +30,7 @@ RNG = np.random.default_rng(8)
 @pytest.fixture(scope="module")
 def ctxs():
     jctx = JCtx(PARAMS, seed=42)
-    tctx = TCtx(PARAMS, seed=42, noise=jax_noise(PARAMS.sigma))
+    tctx = TCtx(TPARAMS, seed=42, device="cpu", noise=jax_noise(PARAMS.sigma))
     for c in (jctx, tctx):
         c.gen_power_of_two_rotation_keys()
         c.gen_rotation_keys(EXTRA_ROTS, force=True)
@@ -43,7 +44,7 @@ def cts(ctxs):
     out = []
     for _ in range(2):
         jc = jctx.encrypt(RNG.uniform(-1, 1, size=jctx.slots))
-        out.append((jc, carry.ciphertext(u32(jc.data), jc.scale)))
+        out.append((jc, carry.ciphertext(u32(jc.data), jc.scale, device="cpu")))
     return out
 
 
@@ -79,7 +80,7 @@ def test_encrypt_default_noise_decrypts(ctxs):
     bits, but a valid encryption that decrypts to the message."""
     _, tctx = ctxs
     z = RNG.uniform(-1, 1, size=tctx.slots)
-    ctx = TCtx(PARAMS, seed=42)
+    ctx = TCtx(TPARAMS, seed=42, device="cpu")
     np.testing.assert_allclose(ctx.decrypt(ctx.encrypt(z)), z, atol=1e-5)
 
 
@@ -94,7 +95,7 @@ def production_chain():
     """Both contexts over the production limb structure (14 q limbs in
     digits of 5, 6 special) at ring 512: the K3 shapes 5->15 and 6->14."""
     p = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
-    return JCtx(p, seed=1), TCtx(p, seed=1)
+    return JCtx(p, seed=1), TCtx(port_params(p), seed=1, device="cpu")
 
 
 @pytest.mark.parametrize("chain", ["test", "production"])
@@ -210,7 +211,7 @@ def test_carried_keys_reproduce_jax(ctxs, cts):
     """A port context drawn from another seed, given the JAX keys through
     utils/carry.py, computes the JAX results."""
     jctx, _ = ctxs
-    other = TCtx(PARAMS, seed=5)
+    other = TCtx(TPARAMS, seed=5, device="cpu")
     assert not torch.equal(other.s_eval, tmm.to_tensor(u32(jctx.s_eval), "cpu"))
     carry_context(jctx, other)
     (ja, ta), (jb, tb) = cts

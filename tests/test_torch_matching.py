@@ -1,6 +1,7 @@
 """Port parity and end-to-end tests of the HyDia (approach 5) slice at
 tests/test_matching.py scale: ring 512, dim 64, 40 vectors, comparison
-depth 8.
+depth 8; and the port's own end-to-end runs of approaches 1-3 (their
+parity with the JAX package is in test_torch_approaches.py).
 
 Sender outputs (similarity, membership, index residues) are bit-exact
 against the JAX sender on the same DB and query (BSGS mode here; the
@@ -21,17 +22,21 @@ from image_matching_tpu.matching import vector_utils as vu
 from image_matching_tpu.matching.config import MatchConfig
 from image_matching_tpu.utils import io as dio
 from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
+from image_matching_tpu_torch.ckks.params import SchemeParams as TParams
+from image_matching_tpu_torch.ckks.params import compute_required_depth as t_required_depth
 from image_matching_tpu_torch.matching import senders as tsenders
+from image_matching_tpu_torch.matching.config import MatchConfig as TConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.utils import carry
 
-from _torch_parity import assert_same, carry_context, protocol_pair, u32
+from _torch_parity import assert_same, carry_context, port_cfg, port_params, protocol_pair, u32
 
 DIM, NVEC = 64, 40
 CFG = MatchConfig(vector_dim=DIM, chunk_len=16, comp_depth=8, alpha_depth=2)
 PARAMS = SchemeParams.create(
     ring_dim=512, mult_depth=compute_required_depth(5, CFG.comp_depth), security="none")
+TCFG, TPARAMS = port_cfg(CFG), port_params(PARAMS)  # the port's own copies
 RNG = np.random.default_rng(4)
 
 
@@ -43,7 +48,7 @@ def pair():
 
 @pytest.fixture(scope="module")
 def port_ctx():
-    return TCtx(PARAMS, seed=7)
+    return TCtx(TPARAMS, seed=7, device="cpu")
 
 
 def _expected(query, db):
@@ -91,12 +96,13 @@ def test_carried_state_reproduces_jax_similarity(pair):
     """Keys, DiagDB and query carried from the JAX objects into a port
     context of another seed give the JAX scores."""
     jp, _, jq, _, (jsim, _) = pair
-    ctx = TCtx(PARAMS, seed=3)
+    ctx = TCtx(TPARAMS, seed=3, device="cpu")
     carry_context(jp.ctx, ctx)
     d = jp.sender.db
-    db = carry.diag_db(u32(d.data), d.num_vectors, d.scale, d.bsgs, d.n1)
-    sender = tsenders.DiagonalSender(ctx, CFG, db)
-    scores = sender.compute_similarity([carry.ciphertext(u32(jq[0].data), jq[0].scale)])
+    db = carry.diag_db(u32(d.data), d.num_vectors, d.scale, d.bsgs, d.n1, device="cpu")
+    sender = tsenders.DiagonalSender(ctx, TCFG, db)
+    scores = sender.compute_similarity([carry.ciphertext(u32(jq[0].data), jq[0].scale,
+                                                         device="cpu")])
     assert_same(jsim, torch.stack([s.data for s in scores]))
 
 
@@ -105,7 +111,7 @@ def test_ct_dot_bit_exact(blocked):
     """ct_dot's plain version against the JAX ct_dot, with operands at
     different limb counts (the higher one's top limbs drop)."""
     jctx = JCtx(PARAMS, seed=1)
-    tctx = TCtx(PARAMS, seed=1)
+    tctx = TCtx(TPARAMS, seed=1, device="cpu")
     P = PARAMS.q_primes
     K = 5
 
@@ -127,7 +133,7 @@ def test_end_to_end_port_alone(port_ctx, bsgs):
     """The port on its own (torch.Generator noise): membership True and
     the index set equal to the plaintext match set, holding vector 0."""
     query, db = dio.gen_dataset(NVEC, DIM, seed=2)
-    cfg = MatchConfig(vector_dim=DIM, chunk_len=16, comp_depth=8, use_bsgs=bsgs)
+    cfg = TConfig(vector_dim=DIM, chunk_len=16, comp_depth=8, use_bsgs=bsgs)
     proto = MatchingProtocol.setup(5, db, cfg, ctx=port_ctx)
     assert proto.sender.db.bsgs is bsgs
     qcts = proto.encrypt_query(query)
@@ -141,7 +147,7 @@ def test_score_parity(port_ctx):
     """Decrypted scores within 1e-4 of the plaintext cosine (the
     reference's bar, float decode)."""
     query, db = dio.gen_dataset(NVEC, DIM, seed=1)
-    proto = MatchingProtocol.setup(5, db, CFG, ctx=port_ctx)
+    proto = MatchingProtocol.setup(5, db, TCFG, ctx=port_ctx)
     scores = proto.sender.compute_similarity(proto.encrypt_query(query))
     sims, _ = _expected(query, db)
     vals = proto.receiver.decrypt_scores(scores)
@@ -154,27 +160,43 @@ def test_membership_false_when_no_match(port_ctx):
     db = rng.integers(-99, 100, size=(NVEC, DIM)).astype(np.float64)  # no plant
     sims, _ = _expected(query, db)
     assert np.all(sims < CFG.match_threshold - 0.05), "fixture accidentally contains a match"
-    proto = MatchingProtocol.setup(5, db, CFG, ctx=port_ctx)
+    proto = MatchingProtocol.setup(5, db, TCFG, ctx=port_ctx)
     assert proto.decrypt_membership(proto.membership(proto.encrypt_query(query))) is False
 
 
 def test_setup_builds_its_own_context():
     query, db = dio.gen_dataset(8, DIM, seed=5)
-    proto = MatchingProtocol.setup(5, db, CFG, params=PARAMS, seed=5)
+    proto = MatchingProtocol.setup(5, db, TCFG, params=TPARAMS, seed=5, device="cpu")
     assert proto.ctx.device == torch.device("cpu") and proto.ctx.seed == 5
     assert proto.decrypt_membership(proto.membership(proto.encrypt_query(query))) is True
 
 
 @pytest.mark.parametrize("approach", [1, 2, 3])
-def test_unported_approaches_raise(approach):
-    db = np.ones((4, DIM))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        MatchingProtocol.setup(approach, db, CFG, params=PARAMS)
+def test_ported_approaches_end_to_end(approach):
+    """Approaches 1-3 on the port alone (torch.Generator noise), each
+    setting up its own context at its required depth: the sender and
+    receiver of the approach, scores within 1e-4 of the plaintext cosine
+    and membership True.  (Their index decisions and parity with the JAX
+    package: test_torch_approaches.py.)"""
+    cfg = TConfig(vector_dim=DIM, chunk_len=16, comp_depth=8)
+    params = TParams.create(
+        ring_dim=512, mult_depth=t_required_depth(approach, cfg.comp_depth, cfg.alpha_depth),
+        security="none")
+    query, db = dio.gen_dataset(NVEC, DIM, seed=2)
+    proto = MatchingProtocol.setup(approach, db, cfg, params=params, seed=3, device="cpu")
+    assert type(proto.sender) is tsenders.SENDERS[approach]
+    assert proto.ctx.params.mult_depth == {1: 11, 2: 16, 3: 10}[approach]
+    qcts = proto.encrypt_query(query)
+    sims, _ = _expected(query, db)
+    vals = proto.receiver.decrypt_scores(proto.sender.compute_similarity(qcts))
+    np.testing.assert_allclose(vals[:NVEC], sims, atol=1e-4)
+    assert proto.decrypt_membership(proto.membership(qcts)) is True
 
 
 @pytest.mark.parametrize("approach", [1, 2, 3])
 def test_streamed_store_raises(approach):
-    """The streamed store is ported for approaches 4 and 5; approaches 1-3
-    are not ported at all yet."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        MatchingProtocol.setup(approach, np.ones((4, DIM)), CFG, params=PARAMS, streamed=True)
+    """The streamed store serves approaches 4 and 5; the JAX package has
+    none for approaches 1-3 either."""
+    with pytest.raises(ValueError, match=r"approaches 4 \(HERS\) and 5"):
+        MatchingProtocol.setup(approach, np.ones((4, DIM)), TCFG, params=TPARAMS,
+                               device="cpu", streamed=True)

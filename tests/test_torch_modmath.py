@@ -169,3 +169,52 @@ def test_launch_checks_reject_cpu_and_wrong_dtype():
         kernels.check_cuda("t", torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         kernels.check_cuda("t", torch.zeros(4, dtype=torch.int64))
+
+
+def _moduli():
+    q, rinv = _tq()
+    return tmm.Moduli(q, rinv, tmm.to_tensor(np.array(PRIMES, dtype=np.uint32), "cpu"),
+                      tmm.to_tensor(np.array([jmm.host_mont_constants(p)[0] for p in PRIMES],
+                                             dtype=np.uint32), "cpu"))
+
+
+@pytest.mark.parametrize("form", ["same", "plane", "limb", "head"])
+@pytest.mark.parametrize("op", ["add", "sub", "neg", "mul"])
+def test_residue_op_plain_bit_exact(op, form):
+    """K11's plain entry point (the CPU side of its dispatch) against the
+    JAX package's mod_add / mod_sub / mod_neg / mont_mul, with the second
+    operand of the first's shape, a plaintext plane broadcast over the
+    leading axes, a per-limb constant, or on the first component only."""
+    a, b = _residues((2, 3)), _residues((2, 3))
+    jq, jqneg = _jq()
+    m = _moduli()
+    jfn = {"add": lambda x, y: jmm.mod_add(x, y, jq), "sub": lambda x, y: jmm.mod_sub(x, y, jq),
+           "neg": lambda x, y: jmm.mod_neg(x, jq),
+           "mul": lambda x, y: jmm.mont_mul(x, y, jq, jqneg)}[op]
+    head = None
+    if form == "same":
+        y, jy = _t(b), jnp.asarray(b)
+    elif form == "plane":
+        y, jy = _t(b[0, 0]), jnp.asarray(b[0, 0])[None, None]
+    elif form == "limb":
+        c = b[0, 0, :, :1]  # [L, 1]
+        y, jy = (_t(c).long() & 0xFFFFFFFF, _t(c[:, 0])), jnp.asarray(c)
+    else:
+        a, b, head = a[0], b[0, :1], 1
+        y, jy = _t(b), jnp.asarray(b)
+    got = tmm.residue_op(op, _t(a), y, m, head=head)
+    want = jfn(jnp.asarray(a), jy)
+    if head is not None:
+        want = jnp.concatenate([want[:head], jnp.asarray(a)[head:]])
+    assert_same(want, got)
+
+
+@pytest.mark.parametrize("R", [1, 2, 15, 128])
+def test_row_sum_plain_bit_exact(R):
+    """K11's row sum on the CPU against the JAX package's chain of
+    mod_adds (senders._mod_sum_rows)."""
+    from image_matching_tpu.matching.senders import _mod_sum_rows
+
+    rows = _residues((R, 2))
+    jq, _ = _jq()
+    assert_same(_mod_sum_rows(jnp.asarray(rows), jq), tmm.row_sum(_t(rows), _moduli()))

@@ -12,7 +12,7 @@ from image_matching_tpu_torch.ckks import poly_eval as tpe
 from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
 from image_matching_tpu_torch.utils import carry
 
-from _torch_parity import assert_same, u32
+from _torch_parity import assert_same, port_params, u32
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=10, security="none")
 RNG = np.random.default_rng(31)
@@ -21,7 +21,7 @@ RNG = np.random.default_rng(31)
 @pytest.fixture(scope="module")
 def ctxs():
     jctx = JCtx(PARAMS, seed=11)
-    tctx = TCtx(PARAMS, seed=11)
+    tctx = TCtx(port_params(PARAMS), seed=11, device="cpu")
     assert_same(jctx.relin_key, tctx.relin_key)
     return jctx, tctx
 
@@ -30,7 +30,7 @@ def _input(jctx, delta=0.44):
     z = RNG.uniform(-1, 1, size=jctx.slots)
     z[:8] = [0.3, 0.42, 0.46, 0.6, 0.9, -0.9, 0.0, 1.0]
     jc = jctx.encrypt(z, scale=jctx.params.scale)
-    return z, jc, carry.ciphertext(u32(jc.data), jc.scale)
+    return z, jc, carry.ciphertext(u32(jc.data), jc.scale, device="cpu")
 
 
 def test_constants_and_host_helpers_match():

@@ -1,0 +1,79 @@
+"""The port stands alone and runs on the card by default.
+
+Every module of image_matching_tpu_torch, and chip_smoke.py, imports in a
+fresh interpreter whose import system refuses jax and the JAX package
+(matched on the exact top-level name: image_matching_tpu_torch is
+allowed).  CkksContext, MatchingProtocol.setup and the carry helpers take
+the card unless the caller asks for the CPU, and without a GPU the default
+raises instead of carrying on on the CPU."""
+
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from image_matching_tpu_torch.ckks.context import CkksContext
+from image_matching_tpu_torch.ckks.params import SchemeParams
+from image_matching_tpu_torch.matching.config import MatchConfig
+from image_matching_tpu_torch.matching.protocol import MatchingProtocol
+from image_matching_tpu_torch.utils import carry
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "image_matching_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import image_matching_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(image_matching_tpu_torch.__path__,
+                                               "image_matching_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+
+leaked = [m for m in sys.modules if m.split(".")[0] in REFUSED]
+assert not leaked, leaked
+print(len(names), "modules")
+'''
+
+
+def test_port_and_smoke_import_without_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[0]) >= 20
+
+
+def test_entry_points_default_to_the_card():
+    for fn in (CkksContext.__init__, MatchingProtocol.setup, carry.ciphertext, carry.base_db,
+               carry.blind_db, carry.diag_db, carry.hers_db):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_default_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default runs there")
+    params = SchemeParams.create(ring_dim=512, mult_depth=2, security="none")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        MatchingProtocol.setup(5, np.ones((4, 64)), MatchConfig(vector_dim=64), params=params)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        CkksContext(params)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        carry.ciphertext(np.zeros((2, 2, 512), np.uint32), 1.0)
+    assert CkksContext(params, device="cpu").device == torch.device("cpu")

@@ -32,19 +32,22 @@ from image_matching_tpu_torch.ops import kernels
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.ops import prng
 from image_matching_tpu_torch.utils import carry
+from image_matching_tpu_torch.utils import native as tnative
 
-from _torch_parity import assert_same, carry_context, jax_noise, jax_seeded_noise, u32
+from _torch_parity import (assert_same, carry_context, jax_noise, jax_seeded_noise, port_cfg,
+                           port_params, u32)
 
 DIM, NVEC = 64, 300  # 300 vectors span 2 groups of 256 slots
 CFG = MatchConfig(vector_dim=DIM, chunk_len=16, comp_depth=8, alpha_depth=2)
 PARAMS = SchemeParams.create(
     ring_dim=512, mult_depth=compute_required_depth(5, CFG.comp_depth), security="none")
+TCFG, TPARAMS = port_cfg(CFG), port_params(PARAMS)  # the port's own copies
 STREAM = dict(resident_budget=0, engine="device")
 HIGH = (2 ** 31 + 5, 2 ** 32 - 3)  # seed and group at and above 2^31
 
 
 def _port_ctx(seed=7):
-    return TCtx(PARAMS, seed=seed, noise=jax_noise(PARAMS.sigma),
+    return TCtx(TPARAMS, seed=seed, device="cpu", noise=jax_noise(PARAMS.sigma),
                 seeded_noise=jax_seeded_noise(PARAMS.sigma))
 
 
@@ -59,7 +62,7 @@ def pair():
     with both groups in the host tier, and the query encrypted in both."""
     query, db = dio.gen_dataset(NVEC, DIM, seed=1)
     jp = JProto.setup(5, db, CFG, ctx=JCtx(PARAMS, seed=7), streamed=True, **STREAM)
-    tp = MatchingProtocol.setup(5, db, CFG, ctx=_port_ctx(), streamed=True, **STREAM)
+    tp = MatchingProtocol.setup(5, db, TCFG, ctx=_port_ctx(), streamed=True, **STREAM)
     return jp, tp, jp.encrypt_query(query), tp.encrypt_query(query), query, db
 
 
@@ -143,7 +146,7 @@ def test_seeded_passes_against_separate_transforms(ctxs):
 
 
 def test_seeded_host_enroller_bit_exact(ctxs):
-    if not native.available():
+    if not (native.available() and tnative.available()):
         pytest.skip("native library not built")
     jctx, tctx = ctxs
     jctx._rng = np.random.default_rng(12)
@@ -154,7 +157,7 @@ def test_seeded_host_enroller_bit_exact(ctxs):
     assert_same(jctx.encrypt_seeded_batch_host(vals, seed=42, group=5), got)
     # decrypts with the c1 the device expands
     ct = carry.ciphertext(np.stack([u32(got[0]), u32(tctx.expand_c1(42, 5, 1, tctx.Lq)[0])]),
-                          tctx.fresh_scale)
+                          tctx.fresh_scale, device="cpu")
     np.testing.assert_allclose(tctx.decrypt(ct), vals[0], atol=1e-6)
 
 
@@ -194,13 +197,14 @@ def test_carried_store_serves_jax_similarity(pair):
     seed give the JAX similarity residues."""
     jp, _, jq, *_ = pair
     js = jp.sender.store
-    ctx = TCtx(PARAMS, seed=3)
+    ctx = TCtx(TPARAMS, seed=3, device="cpu")
     carry_context(jp.ctx, ctx)
     store = carry.diag_store(ctx, [u32(g) for g in js.groups], js.num_vectors, js.scale,
                              js.bsgs, js.n1, js.seed)
     assert store.resident_count() == 2
-    sender = streaming.StreamedDiagonalSender(ctx, CFG, store)
-    scores = sender.compute_similarity([carry.ciphertext(u32(jq[0].data), jq[0].scale)])
+    sender = streaming.StreamedDiagonalSender(ctx, TCFG, store)
+    scores = sender.compute_similarity([carry.ciphertext(u32(jq[0].data), jq[0].scale,
+                                                         device="cpu")])
     jsim, _ = jp.sender._similarity_stream(jq)
     assert_same(jsim, torch.stack([s.data for s in scores]))
 
@@ -212,7 +216,7 @@ def test_streamed_decisions_match_in_memory(pair):
     mem = tp.membership(tq)
     assert tp.decrypt_membership(mem) is True
     idx = tp.decrypt_index(tp.index(tq))
-    ref = MatchingProtocol.setup(5, db, CFG, ctx=TCtx(PARAMS, seed=5))
+    ref = MatchingProtocol.setup(5, db, TCFG, ctx=TCtx(TPARAMS, seed=5, device="cpu"))
     rq = ref.encrypt_query(query)
     assert ref.decrypt_membership(ref.membership(rq)) is True
     assert idx == ref.decrypt_index(ref.index(rq)) == [0]
@@ -239,21 +243,21 @@ def test_resident_budget(monkeypatch):
     """Budget 0 keeps no group resident, 1.5 groups' bytes exactly one,
     IMTPU_HBM_BUDGET_GB is honoured, and promotion stops at the budget."""
     _, db = dio.gen_dataset(NVEC, DIM, seed=3)
-    ctx = TCtx(PARAMS, seed=2)
+    ctx = TCtx(TPARAMS, seed=2, device="cpu")
     gbytes = DIM * ctx.Lq * ctx.n * 4
     assert streaming._hbm_budget_bytes(ctx, 0) == 0  # CPU: no device tier
     counts = []
     for budget in (0, int(1.5 * gbytes), None):
         if budget is None:
             monkeypatch.setenv("IMTPU_HBM_BUDGET_GB", str(1.5 * gbytes / 2 ** 30))
-        store = streaming.enroll_diag_streamed(ctx, CFG, db, resident_budget=budget)
+        store = streaming.enroll_diag_streamed(ctx, TCFG, db, resident_budget=budget)
         counts.append((store.resident_count(), store.host_count()))
     assert counts == [(0, 2), (1, 1), (1, 1)]
     assert store.group_bytes() == gbytes
     store.groups[0], store.resident[0] = store.groups[0].clone(), False
     streaming._promote_resident(store, gbytes + gbytes // 2)
     assert store.resident == [True, False]
-    reserve = streaming._reserve_bytes(ctx, CFG, 14, 0)
+    reserve = streaming._reserve_bytes(ctx, TCFG, 14, 0)
     # 2 x 8 power-of-two keys (256 slots) + 7 baby + 7 giant steps
     assert reserve == 30 * ctx.dnum * 2 * ctx.Ltot * ctx.n * 4 + 6 * gbytes
 
@@ -262,29 +266,30 @@ def test_engine_choice(monkeypatch):
     """On the CPU, "auto" is the device engine and never the host C++
     engine; the pinned tier needs CUDA; an unknown engine raises."""
     _, db = dio.gen_dataset(40, DIM, seed=3)
-    ctx = TCtx(PARAMS, seed=2)
+    ctx = TCtx(TPARAMS, seed=2, device="cpu")
 
     def no_native(*a, **k):
         raise AssertionError("auto picked the host C++ engine")
 
     monkeypatch.setattr(ctx, "encrypt_seeded_batch_host", no_native)
-    store = streaming.enroll_diag_streamed(ctx, CFG, db)
+    store = streaming.enroll_diag_streamed(ctx, TCFG, db)
     assert store.num_groups == 1 and store.resident_count() == 0
     with pytest.raises(ValueError, match="CUDA"):
-        streaming.enroll_diag_streamed(ctx, CFG, db, engine="pinned")
+        streaming.enroll_diag_streamed(ctx, TCFG, db, engine="pinned")
     with pytest.raises(ValueError, match="engine"):
-        streaming.enroll_diag_streamed(ctx, CFG, db, engine="disk")
+        streaming.enroll_diag_streamed(ctx, TCFG, db, engine="disk")
 
 
 def test_native_engine_store_bit_exact():
     """The host C++ engine, asked for by name, enrolls the JAX native
     engine's groups."""
-    if not native.available():
+    if not (native.available() and tnative.available()):
         pytest.skip("native library not built")
     _, db = dio.gen_dataset(NVEC, DIM, seed=4)
     js = jstreaming.enroll_diag_streamed(JCtx(PARAMS, seed=9), CFG, db, resident_budget=0,
                                          engine="native")
-    ts = streaming.enroll_diag_streamed(TCtx(PARAMS, seed=9), CFG, db, resident_budget=0,
+    ts = streaming.enroll_diag_streamed(TCtx(TPARAMS, seed=9, device="cpu"), TCFG, db,
+                                        resident_budget=0,
                                         engine="native")
     assert ts.num_groups == js.num_groups == 2
     for a, b in zip(js.groups, ts.groups):
