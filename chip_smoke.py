@@ -41,6 +41,19 @@ line is printed):
      in memory at 2^15 vectors, each at its own depth (13, 18, 12), as
      phase 3; every kernel but K5/K6 launched (and but K2 for Baseline and
      GROTE).
+Sharded (parallel/sharded.py), reusing the protocols above: after phase 3,
+K12 (the modular sum of shard partials) against its plain version at the
+flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows;
+then HyDia 2^16 (after phase 3) and HERS 2^16 (after phase 7) in memory over
+one-card meshes of 4, 2 and 3 shards, HyDia 2^20 streamed (after phase 5)
+and 2^17 pinned (inside phase 6, before its groups are promoted) over 4
+and 3 shards: decisions equal to the plaintext set, the membership
+ciphertext and index flags bit-equal to one device (all but the uneven
+in-memory mesh, whose padding flags are ~0 and summed, as in the JAX
+package), K12 and every kernel of the unsharded path but setup's and query
+encryption's (and K11's row sum, whose sum of flags K12 takes over)
+launched.  Where the machine has 2 or more cards, each also
+runs over cuda:0..k-1 (k = min(count, 4)), else one line says why not.
 K11 (standalone residue arithmetic) must launch on every path; nothing of
 jax or of the JAX package may be imported.  The last lines are the card's
 name and power limit, one JSON line of per-kernel results (with each
@@ -64,6 +77,7 @@ NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
 DIM = 512
 SEED = 0
 SEEDED_KERNELS = ("expand_c1", "seeded_pre", "seeded_c0")  # the streamed store's
+ENCRYPT_KERNELS = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0")  # setup, query encryption
 APPROACH = {1: "Baseline", 2: "GROTE", 3: "Blind-Match", 4: "HERS", 5: "HyDia"}
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM device memory
 INT_OPS_PER_S = 67e12      # 32-bit lanes outside the tensor cores (float32 peak)
@@ -111,6 +125,54 @@ def rand_residues(shape, primes, gen, device):
     return (x % q).int()
 
 
+def recorder(rows):
+    """record(name, label, got, want, fn, plain_fn, nbytes, ops): hold one
+    kernel call against its plain version, bit for bit, and time both;
+    nbytes and ops are the work of the call (inputs read once, outputs
+    written once), for its bound.  The first shape recorded for a kernel
+    is its main path's and gives its row in `rows`."""
+    def record(name, label, got, want, fn, plain_fn, nbytes, ops):
+        assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape, label
+        err = int((got.long() - want.long()).abs().max())
+        ms, pms = cuda_ms(fn), cuda_ms(plain_fn)
+        bms, by = bound(nbytes, ops)
+        log(f"kernel {name} [{label}]: max_abs_err {err}  kernel {ms:.4f} ms  "
+            f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})")
+        assert err == 0, f"{name} [{label}] differs from its plain version"
+        r = rows.setdefault(name, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=pms, shape=label, bound_ms=bms, bound_by=by)
+    return record
+
+
+def check_psum_mod(rows, l, device):
+    """Phase 2, K12: the modular sum of shard partials against
+    psum_mod_plain, bit-exact, at the membership flag's shape [2, l, N]
+    (l read from phase 3's flag): first the one-card streamed main path's
+    4 shards of 16 flags each (2^20 over 4 shards), then P = 4 and 8
+    one-row buffers (shard partials) and one buffer of 16 rows."""
+    from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
+    from image_matching_tpu_torch.matching.config import MatchConfig
+    from image_matching_tpu_torch.parallel import sharded
+
+    record = recorder(rows)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    params = SchemeParams.create(mult_depth=compute_required_depth(5, MatchConfig().comp_depth))
+    primes, n = params.q_primes[:l], params.ring_dim
+    q = torch.tensor(primes, dtype=torch.int64, device=device)[:, None]
+    for label, counts in [("P=4 x 16 rows", [16] * 4), ("P=4 x 1 row", [1] * 4),
+                          ("P=8 x 1 row", [1] * 8), ("P=1 x 16 rows", [16])]:
+        parts = [rand_residues((R, 2, l, n), primes, gen, device) for R in counts]
+        R = sum(counts)
+        record("psum_mod", f"{label}, [2,{l},N]", sharded.psum_mod_kernel(parts, primes),
+               sharded.psum_mod_plain(parts, q), lambda: sharded.psum_mod_kernel(parts, primes),
+               lambda: sharded.psum_mod_plain(parts, q), (R + 1) * 2 * l * n * 4,
+               R * 2 * l * n * ADD)
+        del parts
+
+
 def check_kernels(ctx, device):
     """Phase 2: each kernel against its plain version, bit-exact."""
     from image_matching_tpu_torch.ckks.context import (fbc_plain, ks_mac_plain, seeded_c0_plain,
@@ -124,23 +186,7 @@ def check_kernels(ctx, device):
     P = ctx.all_primes
     n, Lq, l = ctx.n, ctx.Lq, ctx.Lq
     rows = {}
-
-    def record(name, label, got, want, fn, plain_fn, nbytes, ops):
-        """Hold one kernel call against its plain version, bit for bit, and
-        time both; nbytes and ops are the work of the call (inputs read
-        once, outputs written once), for its bound."""
-        assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape, label
-        err = int((got.long() - want.long()).abs().max())
-        ms, pms = cuda_ms(fn), cuda_ms(plain_fn)
-        bms, by = bound(nbytes, ops)
-        log(f"kernel {name} [{label}]: max_abs_err {err}  kernel {ms:.4f} ms  "
-            f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})")
-        assert err == 0, f"{name} [{label}] differs from its plain version"
-        r = rows.setdefault(name, {"max_abs_err": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if "ms" not in r:  # the first shape listed is the main path's
-            r.update(ms=ms, plain_ms=pms, shape=label, bound_ms=bms, bound_by=by)
-
+    record = recorder(rows)
     plan = ctx.plan
     limbs = tuple(range(ctx.Ltot))
     idx = plan.limb_index(limbs).long()
@@ -469,13 +515,15 @@ def streamed_phase(approach, cfg, device, smi):
         f"vectors; similarity alone {t['similarity_s']:.4f} s "
         f"({t['similarity_s'] / store.num_groups * 1e3:.3f} ms per group)")
     assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
-    return launches
+    return launches, dict(proto=proto, qcts=qcts, mem=mem, idx=idx, expect=expect)
 
 
 def pinned_phase(cfg, device, smi):
     """Phase 6: 2^17 vectors with resident_budget=0, so every group crosses
-    PCIe on every query; then the same store all resident must give a
-    bit-equal membership ciphertext."""
+    PCIe on every query, served single-device and then sharded (the
+    host-tier copies run per shard); then the same store all resident must
+    give a bit-equal membership ciphertext.  Returns the launches of the
+    single-device path and of each sharded one."""
     from image_matching_tpu_torch.matching import streaming
     from image_matching_tpu_torch.matching.protocol import MatchingProtocol
     from image_matching_tpu_torch.ops import kernels
@@ -506,6 +554,11 @@ def pinned_phase(cfg, device, smi):
     end.synchronize()
     h2d_ms = start.elapsed_time(end) / store.num_groups
     del buf
+    sims, expect = expected_matches(query, db, cfg.match_threshold)
+    shard_launches = sharded_phase(
+        f"HyDia pinned 2^{NVEC_PINNED.bit_length() - 1}", True,
+        dict(proto=proto, qcts=qcts, mem=mem, idx=idx, expect=expect), launches, device, smi)
+    assert store.resident_count() == 0
 
     streaming._promote_resident(store, store.num_groups * store.group_bytes())
     assert store.host_count() == 0
@@ -521,7 +574,6 @@ def pinned_phase(cfg, device, smi):
         + json.dumps(per_group) + " (copies overlap the compute when the pinned time per "
         "group is near the larger of copy and resident compute, not their sum)")
 
-    sims, expect = expected_matches(query, db, cfg.match_threshold)
     log(f"pinned membership {member}; index {found[:10]}; expected {expect[:10]}")
     assert member is True and found == expect and 0 in found, "pinned decisions differ"
     assert torch.equal(mem.data, mem_res.data), \
@@ -530,7 +582,7 @@ def pinned_phase(cfg, device, smi):
     err = float(np.abs(vals - sims).max())
     log(f"pinned score parity {err:.3e}; membership ciphertext bit-equal to all-resident")
     assert err <= 1e-4
-    return launches
+    return launches, shard_launches
 
 
 def require_launched(launches, names, path):
@@ -593,7 +645,83 @@ def in_memory_phase(approach, cfg, device, smi, nvec=NVEC):
     log(f"{name} score parity: max |decrypted - cosine| = {err:.3e} over {nvec} vectors; "
         f"similarity alone {t['similarity_s']:.4f} s")
     assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
-    return launches
+    return launches, dict(proto=proto, qcts=qcts, mem=mem, idx=idx, expect=expect)
+
+
+def sharded_phase(name, streamed, res, launches, device, smi, shard_counts=(4, 3)):
+    """The sharded scenario (parallel/sharded.py) over the protocol of a
+    phase just run (`res`: its protocol, query, single-device membership
+    and index, the plaintext index set), on one-card meshes of each count
+    of `shard_counts` (a mesh naming cuda:0 that many times) and, where the
+    machine has 2 or more cards, over cuda:0..k-1 (k = min(count, 4)) with
+    context replicas.  Each run: membership and index, decrypted; the
+    decisions equal the plaintext set; the membership ciphertext and the
+    real groups' index flags bit-equal to the single-device ones wherever
+    the padding adds nothing (streamed: always; in memory: when the shard
+    count divides the group count); K12 and every kernel the unsharded
+    path launched outside setup and query encryption launched (K11's row
+    sum aside: K12 sums the flags here).  Returns each run's launches, by
+    path."""
+    from image_matching_tpu_torch.ckks.context import Ciphertext
+    from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.parallel import sharded
+
+    proto, qcts, mem, idx, expect = (res[k] for k in ("proto", "qcts", "mem", "idx", "expect"))
+    G = len(idx)
+    cls = sharded.ShardedStreamedScenario if streamed else sharded.ShardedScenario
+    # K12 takes over the row sum of the membership's flags (K11 mod_sum)
+    need = [k for k, v in launches.items()
+            if v > 0 and k not in ENCRYPT_KERNELS + ("mod_sum",)] + ["psum_mod"]
+    meshes = [(f"{n} shards on one card", [device] * n) for n in shard_counts]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        k = min(cards, 4)
+        meshes.append((f"{k} shards on {k} cards", [torch.device("cuda", i) for i in range(k)]))
+    else:
+        log(f"{name} sharded: the mesh over real cards was not run: this machine has "
+            f"{cards} CUDA device (it needs 2 or more); the one-card meshes run the "
+            "partition, padding, per-shard compare and K12 reduction")
+    out = {}
+    for label, devs in meshes:
+        times = {}
+        routes = dict(sharded.copy_routes)
+        kernels.reset_counts()
+        scen = timed(times, "construct_s", lambda: cls(proto.sender, sharded.make_mesh(devices=devs)))
+        smem = timed(times, "membership_s", lambda: scen.membership(qcts))
+        sidx = timed(times, "index_s", lambda: scen.index(qcts))
+        member = proto.decrypt_membership(Ciphertext(smem.data.to(device), smem.scale))
+        found = sorted(proto.decrypt_index([Ciphertext(f.data.to(device), f.scale) for f in sidx]))
+        counts = kernels.counts()
+        n = len(devs)
+        exact = streamed or G % n == 0
+        same = torch.equal(smem.data.to(device), mem.data) and all(
+            torch.equal(a.data, b.data.to(device)) for a, b in zip(idx, sidx[:G]))
+        copies = {k: v - routes[k] for k, v in sharded.copy_routes.items()}
+        log(f"{name} sharded, {label} on {smi}: " + json.dumps(times)
+            + f" membership {member}; index {found[:10]} ({len(found)} of {len(sidx)} flags); "
+            f"bit-equal to one device: {same} (required: {exact}); partial copies {copies}; "
+            "launches " + json.dumps(counts))
+        assert member is True and found == expect, f"{name} sharded {label}: decisions differ"
+        assert same or not exact, f"{name} sharded {label}: not bit-equal to one device"
+        require_launched(counts, need, f"{name} sharded, {label}")
+        out[f"{label}"] = counts
+        del scen, smem, sidx
+        free_device()
+    if cards >= 2:
+        d2d_copy(proto, device, name)
+    return out
+
+
+def d2d_copy(proto, device, name):
+    """One DB group copied from card 0 to card 1, CUDA events, mean of 5."""
+    sender = proto.sender
+    group = sender.store.groups[0] if hasattr(sender, "store") else sender.db.data[0]
+    src = group.to(device)
+    dst = torch.empty_like(src, device=torch.device("cuda", 1))
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True))
+    log(f"{name}: one group ({src.numel() * 4 / 1e9:.3f} GB) card 0 -> card 1 in {ms:.3f} ms "
+        f"({src.numel() * 4 / ms / 1e6:.1f} GB/s; peer access "
+        f"{torch.cuda.can_device_access_peer(1, 0)})")
 
 
 def free_device():
@@ -636,31 +764,48 @@ def main():
         f"{params.num_special} special, dnum {params.dnum}")
     rows = check_kernels(CkksContext(params, seed=SEED + 1, device=device), device)
     free_device()
-    in_memory = [k for k in kernels.KERNELS if k not in SEEDED_KERNELS]
+    unsharded = [k for k in kernels.KERNELS if k != "psum_mod"]  # K12: sharded paths only
+    in_memory = [k for k in unsharded if k not in SEEDED_KERNELS]
     slot_packing = [k for k in in_memory if k != "ct_dot"]
+    launches = {}
 
-    # phases 3-4: HyDia in memory; 5: streamed at 2^20; 6: forced pinned
-    launches = {"hydia_in_memory": in_memory_phase(5, cfg, device, smi)}
-    free_device()
+    def sharded(key, name, streamed, res, shard_counts=(4, 3)):
+        for label, counts in sharded_phase(name, streamed, res, launches[key], device, smi,
+                                           shard_counts).items():
+            launches[f"{key}_sharded {label}"] = counts
+
+    # phases 3-4: HyDia in memory, then K12 at its flag's limbs, then sharded
+    launches["hydia_in_memory"], res = in_memory_phase(5, cfg, device, smi)
     require_launched(launches["hydia_in_memory"], in_memory, "HyDia in-memory")
-    launches["hydia_streamed"] = streamed_phase(5, cfg, device, smi)
+    check_psum_mod(rows, res["mem"].limbs, device)
+    sharded("hydia_in_memory", "HyDia in-memory 2^16", False, res, (4, 2, 3))
+    del res
     free_device()
-    require_launched(launches["hydia_streamed"], kernels.KERNELS, "HyDia streamed 2^20")
-    launches["hydia_pinned"] = pinned_phase(cfg, device, smi)
+    # phase 5: streamed at 2^20, then sharded; 6: forced pinned, sharded inside
+    launches["hydia_streamed"], res = streamed_phase(5, cfg, device, smi)
+    require_launched(launches["hydia_streamed"], unsharded, "HyDia streamed 2^20")
+    sharded("hydia_streamed", "HyDia streamed 2^20", True, res)
+    del res
     free_device()
-    require_launched(launches["hydia_pinned"], kernels.KERNELS, "HyDia forced-pinned 2^17")
-    # phases 7-8: HERS in memory at 2^16 and streamed at 2^20
-    launches["hers_in_memory"] = in_memory_phase(4, cfg, device, smi)
+    launches["hydia_pinned"], pinned_sharded = pinned_phase(cfg, device, smi)
     free_device()
+    require_launched(launches["hydia_pinned"], unsharded, "HyDia forced-pinned 2^17")
+    for label, counts in pinned_sharded.items():
+        launches[f"hydia_pinned_sharded {label}"] = counts
+    # phases 7-8: HERS in memory at 2^16 (then sharded) and streamed at 2^20
+    launches["hers_in_memory"], res = in_memory_phase(4, cfg, device, smi)
     require_launched(launches["hers_in_memory"], in_memory, "HERS in-memory")
-    launches["hers_streamed"] = streamed_phase(4, cfg, device, smi)
+    sharded("hers_in_memory", "HERS in-memory 2^16", False, res, (4, 2, 3))
+    del res
     free_device()
-    require_launched(launches["hers_streamed"], kernels.KERNELS, "HERS streamed 2^20")
+    launches["hers_streamed"] = streamed_phase(4, cfg, device, smi)[0]  # drops its 60 GB store
+    free_device()
+    require_launched(launches["hers_streamed"], unsharded, "HERS streamed 2^20")
     # phase 9: Baseline, GROTE and Blind-Match in memory at 2^15
     for approach, key, need in [(1, "baseline_in_memory", slot_packing),
                                 (2, "grote_in_memory", slot_packing),
                                 (3, "blind_in_memory", in_memory)]:
-        launches[key] = in_memory_phase(approach, cfg, device, smi, NVEC_SLOTS)
+        launches[key] = in_memory_phase(approach, cfg, device, smi, NVEC_SLOTS)[0]
         free_device()
         require_launched(launches[key], need, f"{APPROACH[approach]} in-memory 2^15")
     imported = sorted(m for m in sys.modules
@@ -687,11 +832,13 @@ def main():
         "pk_mac": ("pk_encrypt.cu", f"{ctx_py}:420"),
         "modarith": ("modarith.cu", "image_matching_tpu/ops/modmath.py:90"),
         "mod_sum": ("modarith.cu", "image_matching_tpu/matching/senders.py:45"),
+        "psum_mod": ("psum_mod.cu", "image_matching_tpu/parallel/sharded.py:37"),
     }
     # launches: the sum over every driven path (each counted from 0 just
     # before it and read just after its decryption); launches_by_path has
-    # each.  No single PyTorch call computes a modular residue op, an NTT
-    # or a key switch, so library_ms is null throughout.
+    # each.  No single PyTorch call computes a modular residue op, an NTT,
+    # a key switch or a modular sum of separate buffers, so library_ms is
+    # null throughout.
     out = [{"name": k, "route": "cuda", "source": src + meta[k][0],
             "replaces": meta[k][1], "launches": sum(c[k] for c in launches.values()),
             "launches_by_path": {p: c[k] for p, c in launches.items()},

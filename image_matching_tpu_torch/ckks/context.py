@@ -36,6 +36,7 @@ numpy draw the JAX package turns into its ``jax.random`` key; a
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -403,6 +404,33 @@ class CkksContext:
         self._pow2_rots: List[int] = []
         self._pt_cache: Dict = {}
 
+    def replica(self, device) -> "CkksContext":
+        """This context on another device: the same parameters, keys,
+        rotation-key sets and NTT tables, copied (not regenerated), with
+        empty caches; ``self`` when ``device`` is this context's own.  The
+        replica draws from a copy of the generator, so nothing it does moves
+        this context's later draws."""
+        dev = kernels.canonical_device(device)
+        if dev == kernels.canonical_device(self.device):
+            return self
+        return self._copied_to(dev)
+
+    def _copied_to(self, dev: torch.device) -> "CkksContext":
+        """``replica``'s copy, made even onto this context's own device."""
+        r = copy.copy(self)
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                setattr(r, k, v.to(dev, copy=True))
+        r.device = dev
+        r.plan = self.plan.replica(dev)
+        r._rot_sets = [(p.to(dev, copy=True), k.to(dev, copy=True))
+                      for p, k in self._rot_sets]
+        r.rot_keys = {g: dict(sets) for g, sets in self.rot_keys.items()}
+        r._pow2_rots = list(self._pow2_rots)
+        r._rng = copy.deepcopy(self._rng)
+        r._qrow_cache, r._const_cache, r._fbc_cache, r._pt_cache = {}, {}, {}, {}
+        return r
+
     # ------------------------------------------------------------------
     # constant helpers
     # ------------------------------------------------------------------
@@ -695,12 +723,12 @@ class CkksContext:
         for i in range(0, B, self._PK_CHUNK):
             b = min(self._PK_CHUNK, B - i)
             x = torch.empty((3, b, l, n), dtype=torch.int32, device=m_rns.device)
-            kernels.launch("imtpu_pk_pre", "pk_pre", kernels.ptr(x), kernels.ptr(m_rns[i]),
+            kernels.launch("imtpu_pk_pre", "pk_pre", x, kernels.ptr(m_rns[i]),
                            kernels.ptr(v[i]), kernels.ptr(e0[i]), kernels.ptr(e1[i]),
                            kernels.ptr(self.q32), kernels.ptr(self.qneg32),
                            kernels.ptr(self.r2_32), b, l, n)
             x = self.plan.fwd(x, lim)
-            kernels.launch("imtpu_pk_mac", "pk_mac", kernels.ptr(out[i]), kernels.ptr(x),
+            kernels.launch("imtpu_pk_mac", "pk_mac", out[i], kernels.ptr(x),
                            kernels.ptr(self.pk_b), kernels.ptr(self.pk_a),
                            kernels.ptr(self.q32), kernels.ptr(self.qneg32), b, l, n)
         return out
@@ -788,7 +816,7 @@ class CkksContext:
         kernels.check_cuda("seeded_pre", hi, lo, e, self.q32, self.qneg32, self.r2_32,
                            self.c24_32, self.offm_32)
         out = torch.empty((B, l, n), dtype=torch.int32, device=hi.device)
-        kernels.launch("imtpu_seeded_pre", "seeded_pre", kernels.ptr(out), kernels.ptr(hi),
+        kernels.launch("imtpu_seeded_pre", "seeded_pre", out, kernels.ptr(hi),
                        kernels.ptr(lo), kernels.ptr(e), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r2_32),
                        kernels.ptr(self.c24_32), kernels.ptr(self.offm_32), B, l, n)
@@ -804,7 +832,7 @@ class CkksContext:
             raise ValueError(f"seeded_c0: data {tuple(x.shape)} for N={self.n}")
         kernels.check_cuda("seeded_c0", x, self.s_eval, self.q32, self.qneg32, self.r1_32,
                            self.r2_32)
-        kernels.launch("imtpu_seeded_c0", "seeded_c0", kernels.ptr(x), kernels.ptr(x),
+        kernels.launch("imtpu_seeded_c0", "seeded_c0", x, kernels.ptr(x),
                        kernels.ptr(self.s_eval), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r1_32),
                        kernels.ptr(self.r2_32), seed & prng.M32, group & prng.M32, B, l, n)
@@ -876,7 +904,7 @@ class CkksContext:
         kernels.check_cuda("decrypt_mac", self.s_eval, self.q32, self.qneg32)
         B = d.shape[0]
         out = torch.empty((B, l, n), dtype=torch.int32, device=data.device)
-        kernels.launch("imtpu_decrypt_mac", "decrypt_mac", kernels.ptr(out), kernels.ptr(d),
+        kernels.launch("imtpu_decrypt_mac", "decrypt_mac", out, kernels.ptr(d),
                        d.stride(0), d.stride(1), k, kernels.ptr(self.s_eval),
                        kernels.ptr(self.q32), kernels.ptr(self.qneg32), B, l, n)
         return self.plan.inv(out, self.q_limbs(l)).reshape(*data.shape[:-3], l, n)
@@ -961,7 +989,7 @@ class CkksContext:
         kernels.check_cuda("tensor", self.q32, self.qneg32)
         xs, ys = ops[0], ops[-1]
         out = torch.empty((3, l, n), dtype=torch.int32, device=x.device)
-        kernels.launch("imtpu_tensor", "tensor", kernels.ptr(out), kernels.ptr(xs), xs.stride(0),
+        kernels.launch("imtpu_tensor", "tensor", out, kernels.ptr(xs), xs.stride(0),
                        0 if y is None else kernels.ptr(ys), ys.stride(0), int(y is None),
                        kernels.ptr(self.q32), kernels.ptr(self.qneg32), l, n)
         return out
@@ -999,7 +1027,7 @@ class CkksContext:
         top = self.plan.inv(x.data[..., l - 1 : l, :], (l - 1,))  # [..., 1, N]
         kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
         t = torch.empty((*lead, l - 1, n), dtype=torch.int32, device=x.data.device)
-        kernels.launch("imtpu_rescale_lift", "rescale_lift", kernels.ptr(t), kernels.ptr(top),
+        kernels.launch("imtpu_rescale_lift", "rescale_lift", t, kernels.ptr(top),
                        qt, int(self.qneg_np[l - 1]), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r2_32), k, l - 1, n)
         t = self.plan.fwd(t, self.q_limbs(l - 1))
@@ -1040,7 +1068,7 @@ class CkksContext:
         elif perms is not None:
             raise ValueError("sub_scale: a permutation needs an addend")
         out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
-        kernels.launch("imtpu_sub_scale", "sub_scale", kernels.ptr(out), kernels.ptr(xs),
+        kernels.launch("imtpu_sub_scale", "sub_scale", out, kernels.ptr(xs),
                        x_bstride, kernels.ptr(t), kernels.ptr(cinv), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(add), add_r, add_c, add_k,
                        kernels.ptr(perms), perm_r, B, l, n)
@@ -1102,7 +1130,7 @@ class CkksContext:
             raise ValueError("fbc: batch exceeds the kernel's grid (65535)")
         out = torch.empty((*x.shape[:-2], t, n), dtype=torch.int32, device=x.device)
         kernels.check_cuda("fbc", x, c.packed, *(v for v in (pre[1], post[1]) if v is not None))
-        kernels.launch("imtpu_fbc", "fbc", kernels.ptr(out), kernels.ptr(x),
+        kernels.launch("imtpu_fbc", "fbc", out, kernels.ptr(x),
                        kernels.ptr(c.packed), kernels.ptr(pre[1]), kernels.ptr(post[1]),
                        batch, g, t, n)
         return out
@@ -1145,7 +1173,7 @@ class CkksContext:
         out = torch.empty((*coeff.shape[:-2], ndig, E, n), dtype=torch.int32,
                           device=coeff.device)
         kernels.check_cuda("decompose", coeff, consts, info)
-        kernels.launch("imtpu_decompose", "decompose", kernels.ptr(out), kernels.ptr(coeff),
+        kernels.launch("imtpu_decompose", "decompose", out, kernels.ptr(coeff),
                        l * n, kernels.ptr(consts), kernels.ptr(info), B, ndig, E, n)
         return self.plan.fwd(out, self.ext_limbs(l))
 
@@ -1198,7 +1226,7 @@ class CkksContext:
         tensors = [digs, ksk, self.q32, self.qneg32] + ([perms] if perms is not None else [])
         kernels.check_cuda("ks_mac", *tensors)
         kernels.launch(
-            "imtpu_ks_mac", "ks_mac", kernels.ptr(out), kernels.ptr(digs),
+            "imtpu_ks_mac", "ks_mac", out, kernels.ptr(digs),
             0 if d_shared else ndig * E * n, kernels.ptr(perms), kernels.ptr(ksk),
             0 if k_shared else ksk[0].numel(), Rn, ndig, E, l, self.Lq, self.Ltot, n,
             kernels.ptr(self.q32), kernels.ptr(self.qneg32))

@@ -13,8 +13,10 @@ batch axis in chunks of ``CkksContext.ROW_CHUNK``.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +69,7 @@ def ct_dot(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     l = min(LA, LB)
     out = torch.empty((nb, 3, l, n), dtype=torch.int32, device=A.device)
     kernels.check_cuda("ct_dot", A, Bb, ctx.q32, ctx.qneg32)
-    kernels.launch("imtpu_ct_dot", "ct_dot", kernels.ptr(out), kernels.ptr(A),
+    kernels.launch("imtpu_ct_dot", "ct_dot", out, kernels.ptr(A),
                    kernels.ptr(Bb), K, nb, l, n, LA, LB, kernels.ptr(ctx.q32),
                    kernels.ptr(ctx.qneg32))
     return out if blocked else out[0]
@@ -123,6 +125,18 @@ class Sender:
 
     def run_index(self, query_cts: List[Ciphertext]) -> List[Ciphertext]:
         return self.index_scenario(query_cts)
+
+
+def shard_view(sender: Sender, ctx: CkksContext, data: Optional[torch.Tensor] = None) -> Sender:
+    """A shallow copy of ``sender`` that computes with ``ctx`` (a context
+    replica on a shard's device) and, when ``data`` is given, over that
+    block of its DB's group axis instead of the whole; the sender itself is
+    left as it is."""
+    view = copy.copy(sender)
+    view.ctx = ctx
+    if data is not None:
+        view.db = dataclasses.replace(sender.db, data=data)
+    return view
 
 
 def diag_rotations(dim: int, bsgs: bool, n1: int) -> List[int]:

@@ -8,7 +8,9 @@ of the sources and flags, so an edited source is rebuilt.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*``, launches on that stream without synchronising, and returns
-``cudaGetLastError()``; :func:`launch` raises on a non-zero code.  A
+``cudaGetLastError()``; :func:`launch` calls it on the current stream of
+its output tensor's device, with that device current, and raises on a
+non-zero code.  A
 build or launch failure raises: there is no fallback.  Each kernel has a
 launch counter, incremented only where the kernel is launched, so a run
 can show that its main path went through the kernel.
@@ -51,16 +53,19 @@ _ENTRIES = {
     "imtpu_pk_mac": "ppppppiii",
     "imtpu_modarith": "ppipiiiiiiipp",
     "imtpu_mod_sum": "ppiiiiip",
+    "imtpu_psum_mod": "ppiiiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
 # launch counters: one per kernel, the NTT counted per direction and the
 # two-pass kernels (K6 seeded encryption, K7 division by a modulus, K9
 # tensor product / decrypt MAC, K10 public-key encryption, K11 standalone
-# residue arithmetic: elementwise / row sum) per pass
+# residue arithmetic: elementwise / row sum) per pass; K12 the modular sum
+# of shard partials
 KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
            "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale", "decompose",
-           "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith", "mod_sum")
+           "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith", "mod_sum",
+           "psum_mod")
 _counts = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -169,6 +174,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def canonical_device(device) -> torch.device:
+    """``resolve_device(device)`` with a CUDA device's index filled in
+    (``"cuda"`` is the current device), so two names of one card compare
+    equal; a CUDA index past the device count raises."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {str(device)!r}: this machine has "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
+    return dev
+
+
 def ptr(t) -> int:
     """Device pointer of a tensor, or 0 for None."""
     return 0 if t is None else t.data_ptr()
@@ -203,13 +224,18 @@ def row_blocks(t: torch.Tensor):
     return t.contiguous(), batch, L * n
 
 
-def launch(entry: str, counter: str, *args):
-    """Call a C entry point on the current stream; raise on a CUDA error."""
+def launch(entry: str, counter: str, out: torch.Tensor, *args):
+    """Call a C entry point whose first argument is the output tensor
+    ``out`` on the current stream of ``out``'s device, with that device
+    current for the launch (the runtime launches, and sets kernel
+    attributes, on its current device); raise on a CUDA error."""
     L = lib()
     sig = _ENTRIES[entry]
-    if len(args) != len(sig):
-        raise TypeError(f"{entry} takes {len(sig)} arguments, got {len(args)}")
-    rc = getattr(L, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if len(args) + 1 != len(sig):
+        raise TypeError(f"{entry} takes {len(sig)} arguments, got {len(args) + 1}")
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = getattr(L, entry)(out.data_ptr(), *args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = L.imtpu_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")

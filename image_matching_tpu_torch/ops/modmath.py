@@ -148,7 +148,7 @@ def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = Non
     kernels.check_cuda("residue_op", src, contiguous=False)
     kernels.check_cuda("residue_op", m.q32, m.qneg32)
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    kernels.launch("imtpu_modarith", "modarith", kernels.ptr(out), kernels.ptr(src), a_bstride,
+    kernels.launch("imtpu_modarith", "modarith", out, kernels.ptr(src), a_bstride,
                    kernels.ptr(bt), b_bstride, b_mode, OPS[op], head_el, B, l, n,
                    kernels.ptr(m.q32), kernels.ptr(m.qneg32))
     return out
@@ -177,7 +177,7 @@ def row_sum(rows: torch.Tensor, m: Moduli) -> torch.Tensor:
     kernels.check_cuda("row_sum", rows, contiguous=False)
     kernels.check_cuda("row_sum", m.q32)
     out = torch.empty(rows.shape[1:], dtype=torch.int32, device=rows.device)
-    kernels.launch("imtpu_mod_sum", "mod_sum", kernels.ptr(out), kernels.ptr(rows),
+    kernels.launch("imtpu_mod_sum", "mod_sum", out, kernels.ptr(rows),
                    rows.stride(0), R, B, l, n, kernels.ptr(m.q32))
     return out
 

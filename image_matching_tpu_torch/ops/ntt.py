@@ -20,6 +20,7 @@ tables exist only to keep XLA graphs small and are not ported.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -117,15 +118,17 @@ def ntt_inv_plain(a: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor,
 
 class NttPlan:
     """NTT tables for a fixed prime chain (Q limbs + specials), on one
-    device.  Device tables are int32 ``[L_total, N]``; each transform
-    takes a tuple of limb indices naming the rows that take part."""
+    device: the card unless the caller asks for the CPU (without a GPU the
+    default raises).  Device tables are int32 ``[L_total, N]``; each
+    transform takes a tuple of limb indices naming the rows that take
+    part."""
 
     def __init__(self, n: int, primes: Sequence[int], roots: Sequence[int],
-                 device="cpu"):
+                 device="cuda"):
         self.n = n
         self.logn = n.bit_length() - 1
         self.primes = tuple(primes)
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device)
         L = len(primes)
         psis = np.empty((L, n), dtype=np.uint32)
         ipsis = np.empty((L, n), dtype=np.uint32)
@@ -153,6 +156,18 @@ class NttPlan:
         pos[self._exp] = np.arange(n)
         self._pos_of_exp = pos
         self._auto_cache = {}
+
+    def replica(self, device) -> "NttPlan":
+        """The same plan with its tables copied to ``device`` (host tables
+        shared; the limb-index cache starts empty)."""
+        dev = kernels.canonical_device(device)
+        r = copy.copy(self)
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                setattr(r, k, v.to(dev, copy=True))
+        r.device = dev
+        r._idx_cache = {}
+        return r
 
     def _derive_exponents(self) -> np.ndarray:
         """eval position -> exponent of psi (relative to NTT(X)[0]), via
@@ -243,7 +258,7 @@ class NttPlan:
         out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
         kernels.launch(
             "imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd",
-            kernels.ptr(out), kernels.ptr(src), bstride, kernels.ptr(perm), perm_bstride,
+            out, kernels.ptr(src), bstride, kernels.ptr(perm), perm_bstride,
             kernels.ptr(idx), batch * L, L, self.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
             kernels.ptr(self.q), kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh),
             int(inverse))

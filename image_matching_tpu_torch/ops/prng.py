@@ -86,7 +86,7 @@ def uniform_residues(seed: int, group: int, shape: Sequence[int], q: torch.Tenso
     kernels.check_cuda("expand_c1", q, qneg, r1, r2)
     if out.device != q.device or out.dtype != torch.int32:
         raise ValueError("expand_c1: output must be int32 on the constants' device")
-    kernels.launch("imtpu_expand_c1", "expand_c1", kernels.ptr(out), kernels.ptr(q),
+    kernels.launch("imtpu_expand_c1", "expand_c1", out, kernels.ptr(q),
                    kernels.ptr(qneg), kernels.ptr(r1), kernels.ptr(r2), seed & M32,
                    group & M32, B, l, n, out.stride(0))
     return out

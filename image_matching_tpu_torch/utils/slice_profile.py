@@ -1,6 +1,7 @@
 """Where the time goes in the port's matching paths on one GPU.
 
     python3 -m image_matching_tpu_torch.utils.slice_profile [--approach 5] [--log2n 16] [--streamed]
+        [--shards N]
 
 Sets up HyDia (approach 5), HERS (--approach 4), Baseline (1), GROTE (2) or
 Blind-Match (3) at production parameters (an in-memory DB, or for 4 and 5
@@ -9,10 +10,11 @@ budget) step by step, timing keygen, enrollment, rotation keys and the
 query's encryption; times similarity, compare and the final EvalSum of
 membership, plus whole membership and index calls, three times each after
 a first call; then runs
-torch.profiler over one membership and one similarity and reports device
-kernel time, busy share (kernel time over the profiled wall time) and the
-time and launches of each hand-written kernel.  Prints the summary and
-writes it with the profiler tables to --out.
+torch.profiler over one membership and one similarity (and with --shards N
+one membership of the sharded scenario over a mesh naming the card N
+times) and reports device kernel time, busy share (kernel time over the
+profiled wall time) and the time and launches of each hand-written kernel.
+Prints the summary and writes it with the profiler tables to --out.
 """
 
 import argparse
@@ -30,12 +32,13 @@ from ..ckks.params import SchemeParams, compute_required_depth
 from ..matching import enrollers, protocol, receivers, senders, streaming
 from ..matching.config import MatchConfig
 from ..ops import kernels
+from ..parallel import sharded
 from .io import gen_dataset
 
 OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
         "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
         "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
-        "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel")
+        "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel", "psum_mod_kernel")
 
 
 def timed(out, label, fn):
@@ -47,7 +50,7 @@ def timed(out, label, fn):
     return r
 
 
-def run(approach: int, log2n: int, streamed: bool, say, log):
+def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     say(f"{smi}; torch {torch.__version__}")
@@ -87,8 +90,21 @@ def run(approach: int, log2n: int, streamed: bool, say, log):
         say(f"rep {rep} " + json.dumps(r))
     say(f"membership decrypts to {receiver.decrypt_membership(out)}")
 
-    for label, fn in [("membership", lambda: sender.run_membership(qcts)),
-                      ("similarity", lambda: sender.compute_similarity(qcts))]:
+    profiled = [("membership", lambda: sender.run_membership(qcts)),
+                ("similarity", lambda: sender.compute_similarity(qcts))]
+    if shards:
+        scen = (sharded.ShardedStreamedScenario if streamed else sharded.ShardedScenario)(
+            sender, sharded.make_mesh(devices=[ctx.device] * shards))
+        label = f"membership over {shards} shards"
+        for rep in range(3):
+            r = {}
+            sm = timed(r, f"{label}_s", lambda: scen.membership(qcts))
+            say(f"rep {rep} " + json.dumps(r))
+        same = torch.equal(sm.data, out.data)
+        say(f"{label} decrypts to {receiver.decrypt_membership(sm)}; bit-equal to one "
+            f"device: {same}")
+        profiled.append((label, lambda: scen.membership(qcts)))
+    for label, fn in profiled:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -115,6 +131,8 @@ def main():
     ap.add_argument("--log2n", type=int, default=16, help="gallery size 2^log2n")
     ap.add_argument("--streamed", action="store_true",
                     help="serve the gallery from the streamed, seed-compressed store")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="also profile one membership sharded over this many shards on the card")
     ap.add_argument("--out", default="build/slice_profile.log")
     args = ap.parse_args()
     if args.streamed and args.approach not in (4, 5):
@@ -127,7 +145,7 @@ def main():
             print(msg, flush=True)
             log.write(msg + "\n")
 
-        run(args.approach, args.log2n, args.streamed, say, log)
+        run(args.approach, args.log2n, args.streamed, args.shards, say, log)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each kernel bit-exact against its
 plain torch version on the same inputs, launch errors raised, and the
 whole HyDia, HERS, Baseline, GROTE and Blind-Match slices on the card
-bit-exact with the same slices on the CPU.
+bit-exact with the same slices on the CPU; the sharded scenarios over a
+one-card mesh bit-equal to one device, and, where the machine has two or
+more cards, a context on another card than the current one, the sharded
+scenarios over real cards and psum_mod across two processes over NCCL.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  This
 file imports only the port: neither jax, nor the JAX package, nor
@@ -26,11 +29,14 @@ from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
 from image_matching_tpu_torch.ops import modmath as mm
 from image_matching_tpu_torch.ops import ntt, prng
+from image_matching_tpu_torch.parallel import sharded
 from image_matching_tpu_torch.utils import io as dio
 
 pytestmark = pytest.mark.cuda
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
+# every kernel but K12, which only a sharded membership launches
+UNSHARDED = tuple(k for k in kernels.KERNELS if k != "psum_mod")
 
 
 def _device():
@@ -192,7 +198,7 @@ def test_streamed_slice_on_card_matches_cpu(tier):
     for a, b in zip(pc.sender.store.groups, store.groups):
         assert torch.equal(a, b.cpu())
     assert all(v == 0 for v in cc.values())
-    assert all(v > 0 for v in cg.values()), cg
+    assert all(cg[k] > 0 for k in UNSHARDED), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -239,7 +245,7 @@ def test_slice_on_card_matches_cpu():
     assert all(v == 0 for v in cc.values())
     # the in-memory DB runs all but the seeded kernels, which belong to the
     # streamed store (decryption is not in the counted run)
-    assert all(cg[k] > 0 for k in kernels.KERNELS
+    assert all(cg[k] > 0 for k in UNSHARDED
                if k not in ("expand_c1", "seeded_pre", "seeded_c0", "decrypt_mac")), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
@@ -397,7 +403,7 @@ def test_hers_on_card_matches_cpu(streamed):
     assert all(v == 0 for v in cc.values())
     # in memory: one matrix, one score, one flag, so no row sum of flags
     skip = () if streamed else ("expand_c1", "seeded_pre", "seeded_c0", "mod_sum")
-    assert all(cg[k] > 0 for k in kernels.KERNELS if k not in skip), cg
+    assert all(cg[k] > 0 for k in UNSHARDED if k not in skip), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -462,7 +468,7 @@ def test_approaches_on_card_match_cpu(approach):
     # Baseline and GROTE: one merged score, one flag, so no row sum of flags
     skip = {"expand_c1", "seeded_pre", "seeded_c0"} | (
         {"ct_dot", "mod_sum"} if approach != 3 else set())
-    assert all(cg[k] > 0 for k in kernels.KERNELS if k not in skip), cg
+    assert all(cg[k] > 0 for k in UNSHARDED if k not in skip), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -475,3 +481,116 @@ def test_default_device_is_the_card():
     _device()
     p = SchemeParams.create(ring_dim=512, mult_depth=2, security="none")
     assert CkksContext(p, seed=1).device.type == "cuda"
+
+
+def _needs_cards(k=2):
+    _device()
+    if torch.cuda.device_count() < k:
+        pytest.skip(f"needs {k} or more GPUs ({torch.cuda.device_count()} here)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_psum_mod_kernel_matches_plain(n):
+    """K12: P = 1, 4 and 8 one-row buffers and buffers of several rows
+    (16, as a shard's local flags; unequal counts), each a separate
+    allocation read through the pointer table, at the flag shape
+    [2, l, N], against psum_mod_plain; psum_mod takes the same route."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for l in (1, 3, ctx.Lq):
+        q, _ = ctx._qrow(ctx.q_limbs(l))
+        primes = ctx.all_primes[:l]
+        for rows in ([1], [1] * 4, [1] * 8, [16], [3, 1, 5, 1]):
+            parts = [_rows(ctx, gen, (R, 2), range(l)) for R in rows]
+            want = sharded.psum_mod_plain([p.cpu() for p in parts], q.cpu())
+            got = _launched("psum_mod", lambda: sharded.psum_mod_kernel(parts, primes))
+            assert torch.equal(got.cpu(), want), (l, rows)
+            got = _launched("psum_mod", lambda: sharded.psum_mod(parts, primes, dev))
+            assert torch.equal(got.cpu(), want), (l, rows)
+
+
+def _sharded_vs_single(mesh_devices, streamed, n_groups):
+    """HyDia on the card (3 groups at ring 512) served single-device and
+    over the mesh: membership bit-equal, the real groups' index flags
+    bit-equal, decisions right, K12 and every kernel of the path launched
+    by the sharded run."""
+    dev = _device()
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(params.slots * n_groups, 64, seed=3)
+    ctx = CkksContext(params, seed=7, device=dev, **_numpy_noise(params))
+    proto = MatchingProtocol.setup(5, db, cfg, ctx=ctx, streamed=streamed)
+    qcts = proto.encrypt_query(query)
+    mem, idx = proto.membership(qcts), proto.index(qcts)
+    mesh = sharded.make_mesh(devices=mesh_devices)
+    scen = (sharded.ShardedStreamedScenario if streamed else sharded.ShardedScenario)(
+        proto.sender, mesh)
+    kernels.reset_counts()
+    smem, sidx = scen.membership(qcts), scen.index(qcts)
+    counts = kernels.counts()
+    assert smem.data.device == mesh.root
+    assert torch.equal(smem.data.cpu(), mem.data.cpu())
+    for a, b in zip(idx, sidx[:n_groups]):
+        assert torch.equal(a.data.cpu(), b.data.cpu())
+    res = smem if smem.data.device == dev else tc.Ciphertext(smem.data.to(dev), smem.scale)
+    assert proto.decrypt_membership(res) is True
+    assert proto.decrypt_index([tc.Ciphertext(f.data.to(dev), f.scale) for f in sidx]) == [0]
+    # not in the run: setup's and the query's encryption, decryption
+    skip = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0", "decrypt_mac") + (
+        () if streamed else ("expand_c1",))
+    assert all(counts[k] > 0 for k in kernels.KERNELS if k not in skip), counts
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_sharded_on_one_card_matches_single(streamed):
+    """A mesh naming the card twice: in memory 2 groups on 2 shards,
+    streamed 3 groups on 2 shards (one padding group)."""
+    _sharded_vs_single([_device()] * 2, streamed, 3 if streamed else 2)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_sharded_over_cards_matches_one_card(streamed):
+    """The same over real cards (up to 4), the store and DB on card 0, the
+    shards on context replicas, partials copied to card 0."""
+    cards = _needs_cards()[:4]
+    _sharded_vs_single(cards, streamed, len(cards) if not streamed else len(cards) + 1)
+
+
+def test_context_on_another_card():
+    """A context built on the last card while card 0 is current launches
+    its kernels there: NTT, keyswitch (relinearization and rotation) and
+    decryption bit-equal to the same work on card 0; so is a replica of
+    card 0's context on the last card."""
+    cards = _needs_cards()
+    last = cards[-1]
+    torch.cuda.set_device(0)
+    ctx0 = CkksContext(PARAMS, seed=1, device=cards[0], **_numpy_noise(PARAMS))
+    ctx0.gen_rotation_keys([1, 3])
+    ctxs = [CkksContext(PARAMS, seed=1, device=last, **_numpy_noise(PARAMS)), ctx0.replica(last)]
+    ctxs[0].gen_rotation_keys([1, 3])
+    vals = np.random.default_rng(2).uniform(-1, 1, ctx0.slots)
+    x0 = ctx0.encrypt(vals)
+    want = [ctx0.plan.fwd(x0.data, ctx0.q_limbs(x0.limbs)),
+            ctx0.relinearize(ctx0.mul(x0, x0)).data, ctx0.rotate(x0, 3).data,
+            torch.from_numpy(ctx0.decrypt_coeffs(x0))]
+    for ctx in ctxs:
+        x = tc.Ciphertext(x0.data.to(last), x0.scale)
+        got = [ctx.plan.fwd(x.data, ctx.q_limbs(x.limbs)), ctx.relinearize(ctx.mul(x, x)).data,
+               ctx.rotate(x, 3).data, torch.from_numpy(ctx.decrypt_coeffs(x))]
+        assert all(g.device in (last, torch.device("cpu")) for g in got)
+        for w, g in zip(want, got):
+            assert torch.equal(w.cpu(), g.cpu())
+        assert torch.cuda.current_device() == 0
+    assert torch.equal(ctxs[0].relin_key.cpu(), ctx0.relin_key.cpu())
+
+
+def test_two_process_psum_mod_over_nccl():
+    """psum_mod across two processes, one card each, over NCCL (the
+    worker of tests/test_torch_multihost.py)."""
+    _needs_cards()
+    from test_torch_multihost import run_pair
+
+    run_pair("cuda")

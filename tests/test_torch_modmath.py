@@ -157,7 +157,7 @@ def test_cpu_tensors_never_launch_kernels():
 
     before = kernels.counts()
     primes = PRIMES[:2]
-    plan = NttPlan(512, primes, [root_of_unity(q, 1024) for q in primes])
+    plan = NttPlan(512, primes, [root_of_unity(q, 1024) for q in primes], device="cpu")
     x = torch.zeros((2, 512), dtype=torch.int32)
     plan.inv(plan.fwd(x, (0, 1)), (0, 1))
     assert kernels.counts() == before

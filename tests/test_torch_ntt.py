@@ -27,7 +27,7 @@ def _plans(n, nlimbs=None):
         primes = (p.q_primes + p.sp_primes)[:nlimbs]
         roots = [root_of_unity(q, 2 * n) for q in primes]
         _PLANS[n, nlimbs] = (jntt.NttPlan(n, primes, roots),
-                             tntt.NttPlan(n, primes, roots), primes)
+                             tntt.NttPlan(n, primes, roots, device="cpu"), primes)
     return _PLANS[n, nlimbs]
 
 

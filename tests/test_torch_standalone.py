@@ -3,9 +3,9 @@
 Every module of image_matching_tpu_torch, and chip_smoke.py, imports in a
 fresh interpreter whose import system refuses jax and the JAX package
 (matched on the exact top-level name: image_matching_tpu_torch is
-allowed).  CkksContext, MatchingProtocol.setup and the carry helpers take
-the card unless the caller asks for the CPU, and without a GPU the default
-raises instead of carrying on on the CPU."""
+allowed).  CkksContext, NttPlan, MatchingProtocol.setup, the carry helpers
+and make_mesh take the card unless the caller asks for the CPU, and
+without a GPU the default raises instead of carrying on on the CPU."""
 
 import inspect
 import os
@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from image_matching_tpu_torch.ckks.context import CkksContext
-from image_matching_tpu_torch.ckks.params import SchemeParams
+from image_matching_tpu_torch.ckks.params import SchemeParams, root_of_unity
 from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
+from image_matching_tpu_torch.ops.ntt import NttPlan
+from image_matching_tpu_torch.parallel.sharded import make_mesh
 from image_matching_tpu_torch.utils import carry
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,6 +45,8 @@ import image_matching_tpu_torch
 
 names = [m.name for m in pkgutil.walk_packages(image_matching_tpu_torch.__path__,
                                                "image_matching_tpu_torch.")]
+assert {"image_matching_tpu_torch.parallel.sharded",
+        "image_matching_tpu_torch.parallel.multihost"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -61,8 +65,8 @@ def test_port_and_smoke_import_without_jax():
 
 
 def test_entry_points_default_to_the_card():
-    for fn in (CkksContext.__init__, MatchingProtocol.setup, carry.ciphertext, carry.base_db,
-               carry.blind_db, carry.diag_db, carry.hers_db):
+    for fn in (CkksContext.__init__, NttPlan.__init__, MatchingProtocol.setup, carry.ciphertext,
+               carry.base_db, carry.blind_db, carry.diag_db, carry.hers_db):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
@@ -76,4 +80,8 @@ def test_default_raises_without_a_gpu():
         CkksContext(params)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         carry.ciphertext(np.zeros((2, 2, 512), np.uint32), 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        NttPlan(512, params.q_primes[:1], [root_of_unity(params.q_primes[0], 1024)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_mesh(devices=["cuda:0"] * 2)
     assert CkksContext(params, device="cpu").device == torch.device("cpu")
