@@ -13,7 +13,10 @@ line is printed):
      operations built on K7-K10: rescale, mod-down, digit decomposition,
      tensor product, decryption, public-key encryption) on the card at the
      shapes of the main path and require bit-exact equality with its plain
-     torch version on the same inputs; print both times (CUDA events);
+     torch version on the same inputs; print both times (CUDA events); K1
+     also at 2, 28, 160 and 448 rows, with and without a per-row Galois
+     gather, beside the earlier design's ntt.cu where build/ntt_prev/
+     holds one (utils/ntt_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
@@ -27,7 +30,8 @@ line is printed):
      (split into keygen, enrollment, rotation keys), membership and index
      (a first call, then three repetitions each), the same decisions and
      score parity over all 2^20 vectors; resident and pinned group counts,
-     peak device memory; every kernel launched;
+     peak device memory; the launches of one membership and K1's launches
+     by row count; every kernel launched;
   6. 2^17 vectors (8 groups) with resident_budget=0, so every group
      crosses PCIe on every query: the same decisions, the per-group copy
      and compute times, and a membership ciphertext bit-equal to the same
@@ -53,7 +57,9 @@ in-memory mesh, whose padding flags are ~0 and summed, as in the JAX
 package), K12 and every kernel of the unsharded path but setup's and query
 encryption's (and K11's row sum, whose sum of flags K12 takes over)
 launched.  Where the machine has 2 or more cards, each also
-runs over cuda:0..k-1 (k = min(count, 4)), else one line says why not.
+runs over cuda:0..k-1 (k = min(count, 4)), one issuing thread per card,
+and prints each card's window (issue start, issue end, card done), else
+one line says why not.
 K11 (standalone residue arithmetic) must launch on every path; nothing of
 jax or of the JAX package may be imported.  The last lines are the card's
 name and power limit, one JSON line of per-kernel results (with each
@@ -90,11 +96,14 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=5):
-    """Mean device time of fn() in ms over `iters` calls after a warm-up."""
+    """Mean device time of fn() in ms over `iters` calls after a warm-up,
+    the calls queued behind a sleep on the card so that the window holds
+    their device time and not their wrappers' host time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 400_000))
     start.record()
     for _ in range(iters):
         fn()
@@ -200,6 +209,7 @@ def check_kernels(ctx, device):
            lambda: plan.inv(x, limbs),
            lambda: ntt_inv_plain(x, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]), nb, ops)
     del x
+    check_ntt_shapes(plan, rows)
 
     qp = P[:Lq]
     def ct_dot_work(K, blocks):
@@ -276,6 +286,30 @@ def check_kernels(ctx, device):
     check_residue_ops(ctx, device, gen, record)
     check_grote_width(device, gen, record)
     return rows
+
+
+def check_ntt_shapes(plan, rows):
+    """Phase 2, K1 at the row counts of the main path (2, 28, 160 and 448
+    rows; forward and inverse; plain loads and a per-row Galois gather),
+    bit-exact with its plain version, timed beside its plain version and,
+    where the checkout holds one (build/ntt_prev/ntt.cu, the design before
+    this one), beside that earlier kernel built alone, in turns on the same
+    inputs (utils/ntt_bench.py)."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import ntt_bench
+
+    src = Path(__file__).resolve().parent / "build" / "ntt_prev" / "ntt.cu"
+    baseline = ntt_bench.build_baseline(src) if src.exists() else None
+    if baseline is None:
+        log(f"K1 shapes: no earlier ntt.cu at {src}: K1 timed alone")
+    cases = ntt_bench.measure(plan, baseline)
+    for c in cases:
+        log("K1 shape " + json.dumps(c))
+        assert c["max_abs_err"] == 0, f"K1 differs from its plain version at {c}"
+        assert c["baseline_max_abs_err"] in (None, 0), f"the earlier K1 differs at {c}"
+    for k in ("ntt_fwd", "ntt_inv"):
+        rows[k]["shapes"] = [c for c in cases if c["direction"] == k[-3:]]
 
 
 def check_fused(ctx, device, gen, record, rows):
@@ -491,6 +525,7 @@ def streamed_phase(approach, cfg, device, smi):
         approach, db, cfg, seed=SEED, device=device, streamed=True))
     qcts = timed(times, "encrypt_query_s", lambda: proto.encrypt_query(query))
     mem, idx = queries(proto, qcts, times)
+    one_membership_launches(name, proto, qcts)
     member = proto.decrypt_membership(mem)
     found = sorted(proto.decrypt_index(idx))
     launches = kernels.counts()
@@ -516,6 +551,21 @@ def streamed_phase(approach, cfg, device, smi):
         f"({t['similarity_s'] / store.num_groups * 1e3:.3f} ms per group)")
     assert err <= 1e-4, f"{name}: score parity above the 1e-4 bar"
     return launches, dict(proto=proto, qcts=qcts, mem=mem, idx=idx, expect=expect)
+
+
+def one_membership_launches(name, proto, qcts):
+    """One more membership: its kernel launches (all, and by kernel) and
+    K1's launches by row count (NttPlan.rows_hist), read around it."""
+    from image_matching_tpu_torch.ops import kernels
+
+    hist = proto.ctx.plan.rows_hist
+    hist.clear()
+    before = kernels.counts()
+    proto.membership(qcts)
+    torch.cuda.synchronize()
+    by_kernel = {k: v - before[k] for k, v in kernels.counts().items() if v > before[k]}
+    log(f"{name}: one membership launched {sum(by_kernel.values())} kernels "
+        f"{json.dumps(by_kernel)}; K1 launches by rows {json.dumps(dict(sorted(hist.items())))}")
 
 
 def pinned_phase(cfg, device, smi):
@@ -697,6 +747,11 @@ def sharded_phase(name, streamed, res, launches, device, smi, shard_counts=(4, 3
         same = torch.equal(smem.data.to(device), mem.data) and all(
             torch.equal(a.data, b.data.to(device)) for a, b in zip(idx, sidx[:G]))
         copies = {k: v - routes[k] for k, v in sharded.copy_routes.items()}
+        if len(set(devs)) > 1:
+            # the last call's per-card windows on the host clock: each
+            # card's issuing thread began, finished issuing, its card done
+            log(f"{name} sharded, {label}: per-card windows of the last call "
+                + json.dumps(scen.windows))
         log(f"{name} sharded, {label} on {smi}: " + json.dumps(times)
             + f" membership {member}; index {found[:10]} ({len(found)} of {len(sidx)} flags); "
             f"bit-equal to one device: {same} (required: {exact}); partial copies {copies}; "
@@ -844,7 +899,8 @@ def main():
             "launches_by_path": {p: c[k] for p, c in launches.items()},
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
-            "bound_by": rows[k]["bound_by"], "library_ms": None, "shape": rows[k]["shape"]}
+            "bound_by": rows[k]["bound_by"], "library_ms": None, "shape": rows[k]["shape"],
+            **({"shapes": rows[k]["shapes"]} if "shapes" in rows[k] else {})}
            for k in kernels.KERNELS]
     log(f"total {time.perf_counter() - T0:.1f} s")
     log(smi)

@@ -281,20 +281,21 @@ def decompose_plain(ctx: "CkksContext", poly_eval: torch.Tensor, l: int,
 
 def tensor_plain(ctx: "CkksContext", x: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Tensor product of ciphertext data [2, lx, N] and [2, ly, N] ->
-    [3, l, N], l = min(lx, ly) (K9); the square of x when y is None."""
+    """Tensor product of ciphertext data [..., 2, lx, N] and [..., 2, ly, N]
+    -> [..., 3, l, N], l = min(lx, ly) (K9); the square of x when y is
+    None.  Each ciphertext of a batch is multiplied on its own."""
     l = x.shape[-2] if y is None else min(x.shape[-2], y.shape[-2])
     q, rinv = ctx._qrow(ctx.q_limbs(l))
-    x0, x1 = x[0, :l], x[1, :l]
+    x0, x1 = x[..., 0, :l, :], x[..., 1, :l, :]
     if y is None:
         m = mm.mont_mul(x0, x1, q, rinv)
         return torch.stack([mm.mont_mul(x0, x0, q, rinv), mm.mod_add(m, m, q),
-                            mm.mont_mul(x1, x1, q, rinv)])
-    y0, y1 = y[0, :l], y[1, :l]
+                            mm.mont_mul(x1, x1, q, rinv)], dim=-3)
+    y0, y1 = y[..., 0, :l, :], y[..., 1, :l, :]
     c0 = mm.mont_mul(x0, y0, q, rinv)
     c1 = mm.mod_add(mm.mont_mul(x0, y1, q, rinv), mm.mont_mul(x1, y0, q, rinv), q)
     c2 = mm.mont_mul(x1, y1, q, rinv)
-    return torch.stack([c0, c1, c2])
+    return torch.stack([c0, c1, c2], dim=-3)
 
 
 def decrypt_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
@@ -928,8 +929,10 @@ class CkksContext:
 
     # The residue ops below launch K11 for CUDA tensors (``mm.residue_op``)
     # and run the plain versions for CPU tensors.  Ciphertext data may carry
-    # leading batch axes ([..., k, l, N]) everywhere but in add_scalar and in
-    # the add of ciphertexts with unequal component counts.
+    # leading batch axes ([..., k, l, N]), the same on both operands of a
+    # binary op; no op reduces across them, so a batch gives each
+    # ciphertext's own result (the compare circuit runs over stacks of
+    # scores, ``Sender._compare_many_with``).
 
     def add(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
         l = min(x.limbs, y.limbs)
@@ -975,24 +978,30 @@ class CkksContext:
                           x.scale * pt_scale)
 
     def _tensor(self, x: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
-        """Tensor product of data [2, lx, N] and [2, ly, N] (the square of
-        x when y is None) -> [3, min(lx, ly), N]: K9 on CUDA, reading
-        dropped limbs in place; ``tensor_plain`` on the CPU."""
+        """Tensor product of data [..., 2, lx, N] and [..., 2, ly, N] (the
+        square of x when y is None; the same leading batch axes) -> [..., 3,
+        min(lx, ly), N]: one K9 launch on CUDA, reading dropped limbs in
+        place; ``tensor_plain`` on the CPU."""
         if not x.is_cuda:
             return tensor_plain(self, x, y)
+        lead = tuple(x.shape[:-3])
         ops = [x] if y is None else [x, y]
         l, n = min(t.shape[-2] for t in ops), self.n
-        ops = [t if t.stride(-1) == 1 and t.stride(-2) == n else t.contiguous() for t in ops]
-        if any(t.shape[0] != 2 or t.shape[-1] != n for t in ops):
+        if any(t.dim() < 3 or t.shape[-3] != 2 or t.shape[-1] != n
+               or tuple(t.shape[:-3]) != lead for t in ops):
             raise ValueError(f"tensor: operands {[tuple(t.shape) for t in ops]}")
+        ops = [t.reshape(-1, *t.shape[-3:]) for t in ops]  # [B, 2, L, N]
+        ops = [t if t.stride(-1) == 1 and t.stride(-2) == n else t.contiguous() for t in ops]
         kernels.check_cuda("tensor", *ops, contiguous=False)
         kernels.check_cuda("tensor", self.q32, self.qneg32)
         xs, ys = ops[0], ops[-1]
-        out = torch.empty((3, l, n), dtype=torch.int32, device=x.device)
+        B = xs.shape[0]
+        out = torch.empty((B, 3, l, n), dtype=torch.int32, device=x.device)
         kernels.launch("imtpu_tensor", "tensor", out, kernels.ptr(xs), xs.stride(0),
-                       0 if y is None else kernels.ptr(ys), ys.stride(0), int(y is None),
-                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), l, n)
-        return out
+                       xs.stride(1), 0 if y is None else kernels.ptr(ys), ys.stride(0),
+                       ys.stride(1), int(y is None), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), B, l, n)
+        return out.reshape(*lead, 3, l, n)
 
     def mul(self, x: Ciphertext, y: Ciphertext) -> Ciphertext:
         """Tensor product without relinearization (EvalMultNoRelin); the

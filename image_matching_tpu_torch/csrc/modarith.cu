@@ -8,10 +8,12 @@
 // the membership sum of flags, the output accumulation of slot packing):
 //   elementwise pass: out = a + b, a - b, -a or a * b * R^-1 mod q_i, with
 //     b of a's shape, an [l, N] plane broadcast over the leading axes, or a
-//     per-limb constant [l]; with `head`, elements past the first `head`
-//     pass through unchanged (add_scalar's component 0, or the add of
-//     ciphertexts with unequal component counts), so no concatenation is
-//     needed;
+//     per-limb constant [l]; with a head of h components out of k, each
+//     ciphertext's components past its first h pass through unchanged
+//     (add_scalar's component 0, or the add of ciphertexts with unequal
+//     component counts), over any number of ciphertexts, so no
+//     concatenation is needed; a same-shape b then holds h components per
+//     ciphertext;
 //   row-sum pass: out = sum_r a[r] mod q_i over R rows, summed in 64 bits
 //     (R < 2^32 rows of residues < 2^31 cannot overflow) and reduced once:
 //     the same canonical residue as the JAX package's chain of mod_adds.
@@ -37,7 +39,8 @@ __global__ void modarith_kernel(uint32_t *__restrict__ out,
                                 int64_t a_bstride,
                                 const uint32_t *__restrict__ b,
                                 int64_t b_bstride, int b_mode, int op,
-                                int64_t head, int64_t total, int l, int n,
+                                int kcomp, int headk, int64_t total, int l,
+                                int n,
                                 const uint32_t *__restrict__ qs,
                                 const uint32_t *__restrict__ qneg) {
   const int64_t plane = (int64_t)l * n;
@@ -45,7 +48,8 @@ __global__ void modarith_kernel(uint32_t *__restrict__ out,
        i += (int64_t)gridDim.x * blockDim.x) {
     const int64_t blk = i / plane, r = i - blk * plane;
     const uint32_t x = a[blk * a_bstride + r];
-    if (i >= head) {
+    const int comp = (int)(blk % kcomp);
+    if (comp >= headk) {
       out[i] = x;
       continue;
     }
@@ -53,7 +57,7 @@ __global__ void modarith_kernel(uint32_t *__restrict__ out,
     const uint32_t q = qs[limb];
     uint32_t y = 0;
     if (op != OP_NEG)
-      y = b_mode == B_SAME ? b[blk * b_bstride + r]
+      y = b_mode == B_SAME ? b[((blk / kcomp) * headk + comp) * b_bstride + r]
                            : (b_mode == B_PLANE ? b[r] : b[limb]);
     uint32_t v;
     if (op == OP_ADD)
@@ -89,19 +93,24 @@ static unsigned grid_for(int64_t total, int threads) {
 // a: B blocks of [l, n] residues, block stride a_bstride; b (unused for
 // neg): B blocks with stride b_bstride (b_mode 0), one [l, n] plane
 // (b_mode 1) or [l] (b_mode 2); op 0 add, 1 sub, 2 neg, 3 Montgomery
-// product; out: [B, l, n], the op applied to its first `head` elements.
+// product; out: [B, l, n], B = ciphertexts * kcomp blocks, the op applied
+// to the first headk blocks of every kcomp (kcomp = headk = 1: all).
 extern "C" int imtpu_modarith(void *out, const void *a, int64_t a_bstride,
                               const void *b, int64_t b_bstride, int64_t b_mode,
-                              int64_t op, int64_t head, int64_t B, int64_t l,
+                              int64_t op, int64_t kcomp, int64_t headk,
+                              int64_t B, int64_t l,
                               int64_t n, const void *qs, const void *qneg,
                               void *stream) {
   const int64_t total = B * l * n;
   if (total == 0) return 0;
-  if (op < 0 || op > 3 || b_mode < 0 || b_mode > 2) return (int)cudaErrorInvalidValue;
+  if (op < 0 || op > 3 || b_mode < 0 || b_mode > 2 || kcomp < 1 || headk < 1 ||
+      headk > kcomp || B % kcomp != 0)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   modarith_kernel<<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
       (uint32_t *)out, (const uint32_t *)a, a_bstride, (const uint32_t *)b,
-      b_bstride, (int)b_mode, (int)op, head, total, (int)l, (int)n,
+      b_bstride, (int)b_mode, (int)op, (int)kcomp, (int)headk, total, (int)l,
+      (int)n,
       (const uint32_t *)qs, (const uint32_t *)qneg);
   return (int)cudaGetLastError();
 }

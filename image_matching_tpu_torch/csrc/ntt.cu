@@ -3,136 +3,498 @@
 // Replaces image_matching_tpu/ops/ntt.py NttPlan.fwd (:231) and
 // NttPlan.inv (:260).  Same merged-twiddle wiring as host_ntt_fwd /
 // host_ntt_inv (:294, :313): forward is Cooley-Tukey from natural order
-// to bit-reversed evaluation order with twiddle psis[m + g]; inverse is
-// Gentleman-Sande with ipsis[h + g] and a final 1/N.  All outputs are
-// canonical residues, so the result is bit-identical to the JAX plan's.
+// to bit-reversed evaluation order with twiddle psis[m + g] at stage m,
+// group g; inverse is Gentleman-Sande with ipsis[h + g] and a final 1/N.
+// All outputs are canonical residues, so the result is bit-identical to
+// the JAX plan's (an exact transform over Z_q has one correct output).
 //
-// What bounds it on the H100: each of the log2(N) stages touches the
-// whole row, so a row that went back to device memory between stages
-// would cost 15 round trips at N = 32768.  Design: one thread block per
-// (batch, limb) row keeps the whole row (N * 4 B = 128 KiB) in dynamic
-// shared memory for all stages, so device memory sees one read and one
-// write of the row plus the twiddle reads (which hit L2: one table row per
-// limb is shared by every batch row).  The TPU version instead runs
-// uniform roll-and-select stages to keep XLA graphs small; that has no
-// use here.  One block per SM fits (128 KiB of 227 KiB); rows >= 132 fill
-// the card.  Bank conflicts in the short-stride stages and the
-// per-stage __syncthreads are the next costs to attack.
+// What bounds it on the H100: device memory for many rows (each row is
+// read and written once, N * 4 B each way; the bound at 160 rows of 2^15
+// is 0.014 ms), the integer pipes and the latency of a few dependent
+// passes for few rows.  The main path launches it with 2 to several
+// hundred rows: a rescale's top limb (2 rows), a query's keyswitch (14-40),
+// the compare circuit's stacks of 16 scores (hundreds).  A design that
+// gives each row one block leaves most of the 132 SMs idle below 132 rows
+// and ran 15 barrier-separated radix-2 stages through shared memory.
 //
-// The loads take a batch stride, so a slice of limbs (the top limb of a
-// rescale, the special limbs of a mod-down) is read in place, and an
-// optional permutation perm[x] of the input coefficients: the Galois
-// automorphism gather of image_matching_tpu/ckks/context.py _permute (:976)
-// fused into the inverse NTT that starts a rotation's key switch.
+// Design: a hierarchical two-pass transform, N = 2^a * 2^8.  Cooley-
+// Tukey's first a stages (strides N/2 ... 256) only mix elements that
+// share the low 8 index bits: the column pass gives each block 32 columns
+// j and the 2^a elements j + i * 256 of each; then the row falls apart
+// into 2^a contiguous sub-blocks of 256, and the row pass gives each warp
+// one sub-block for the last 8 stages.  The inverse runs the mirror: rows
+// first, columns last, 1/N folded into the last store.
+//   - Many small blocks per row (2^a/4 row-pass blocks and 8 column-pass
+//     blocks at N = 2^15) fill the card from a few rows on.
+//   - Every butterfly runs in registers.  A column-pass thread holds
+//     2^ceil(a/2) elements through ceil(a/2) stages, exchanges them once
+//     through shared memory (lanes on consecutive columns: no bank
+//     conflict) and runs the other floor(a/2).  A row-pass lane holds 8
+//     elements through 3 stages at a time and the warp regroups them
+//     twice through its own swizzled 1 KiB of shared memory (every access
+//     on 32 distinct banks, a __syncwarp each way).  One barrier per row
+//     pass (the twiddles), two per column pass: 3 where one block per row
+//     had 15.
+//   - Twiddles with their Shoup companions are staged once per block into
+//     shared memory (the 2^a - 1 the column pass needs; 255 per sub-block
+//     for the row pass) and read from there: no global twiddle load
+//     inside a butterfly loop.
+//   - Between the passes each row makes one round trip through `out`,
+//     which at the main path's row counts stays mostly in the 50 MB L2.
+//     Neither pass needs more than 48 KiB of shared memory, so no kernel
+//     attribute is set on any path.
+// What is left: the integer pipes (a Shoup product and two modular adds
+// per butterfly, ~10 instructions) and the twiddle staging, which reads as
+// many words per row pass as it transforms.
+//
+// The first pass's loads take a batch stride, so a slice of limbs (the top
+// limb of a rescale, the special limbs of a mod-down) is read in place, and
+// an optional permutation perm[x] of the input: the Galois automorphism
+// gather of image_matching_tpu/ckks/context.py _permute (:976) fused into
+// the inverse NTT that starts a rotation's key switch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "modmath.cuh"
 
-template <bool INVERSE>
-__global__ void ntt_kernel(uint32_t *__restrict__ out,
-                           const uint32_t *__restrict__ in,
-                           int64_t in_bstride,
-                           const int32_t *__restrict__ perm,
-                           int64_t perm_bstride,
-                           const int32_t *__restrict__ limb_idx, int L,
-                           int logn, const uint32_t *__restrict__ tw,
-                           const uint32_t *__restrict__ tw_sh,
-                           const uint32_t *__restrict__ qs,
-                           const uint32_t *__restrict__ ninv,
-                           const uint32_t *__restrict__ ninv_sh) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const size_t row = blockIdx.x;
-  const int limb = limb_idx[row % L];
-  const uint32_t q = qs[limb];
-  const uint32_t *w = tw + (size_t)limb * n;
-  const uint32_t *wsh = tw_sh + (size_t)limb * n;
-  const size_t b = row / L;
-  const uint32_t *src = in + b * in_bstride + (row % L) * (size_t)n;
-  if (perm) {
-    const int32_t *pr = perm + b * perm_bstride;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[pr[i]];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[i];
-  }
-  __syncthreads();
-  if (!INVERSE) {
-    // stage m = 2^st: t = n / 2m; butterfly k -> group g = k / t
-    for (int st = 0; st < logn; ++st) {
-      const int lt = logn - 1 - st;  // log2 t
-      const int t = 1 << lt;
-      const int m = 1 << st;
-      for (int k = threadIdx.x; k < half; k += blockDim.x) {
-        const int g = k >> lt;
-        const int iu = (g << (lt + 1)) + (k & (t - 1));
-        const uint32_t u = s[iu];
-        const uint32_t v = shoup_mul(s[iu + t], w[m + g], wsh[m + g], q);
-        s[iu] = mod_add(u, v, q);
-        s[iu + t] = mod_sub(u, v, q);
-      }
-      __syncthreads();
-    }
-    uint32_t *dst = out + row * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = s[i];
-  } else {
-    // stage m = n >> lt (h = m / 2 groups), t = 2^lt
-    for (int lt = 0; lt < logn; ++lt) {
-      const int t = 1 << lt;
-      const int h = half >> lt;
-      for (int k = threadIdx.x; k < half; k += blockDim.x) {
-        const int g = k >> lt;
-        const int iu = (g << (lt + 1)) + (k & (t - 1));
-        const uint32_t u = s[iu];
-        const uint32_t v = s[iu + t];
-        s[iu] = mod_add(u, v, q);
-        s[iu + t] = shoup_mul(mod_sub(u, v, q), w[h + g], wsh[h + g], q);
-      }
-      __syncthreads();
-    }
-    const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
-    uint32_t *dst = out + row * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      dst[i] = shoup_mul(s[i], ni, nish, q);
+namespace {
+
+constexpr int kMaxRowBits = 8;  // b: a row-pass warp holds 2^8 elements
+
+// Shared-memory twiddles of one block: for v = 0..K-1, the (SB << v)
+// entries from table index (1 << (P + v)) + (blk0 << v) on, at offset
+// ((1 << v) - 1) << lsb (SB = 1 << lsb sub-transforms per block).
+__device__ __forceinline__ void stage_twiddles(uint2 *stw,
+                                               const uint32_t *__restrict__ w,
+                                               const uint32_t *__restrict__ wsh,
+                                               int P, int K, int lsb, int blk0) {
+  const int total = ((1 << K) - 1) << lsb;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int v = 31 - __clz((e >> lsb) + 1);
+    const int g = (1 << (P + v)) + (blk0 << v) + e - (((1 << v) - 1) << lsb);
+    stw[e] = make_uint2(__ldg(w + g), __ldg(wsh + g));
   }
 }
 
-// rows = batch * L rows of n = 2^logn residues; row r = (b, i) reads
-// in + b * in_bstride + i * n (through perm + b * perm_bstride when perm
-// is not NULL; perm_bstride 0 shares one permutation) and uses table row
-// limb_idx[i].  tw/tw_sh are psis/psis_sh (forward) or ipsis/ipsis_sh
-// (inverse), [Ltot, n].  out is [rows, n]; it may alias in when in is
-// contiguous and perm is NULL.
+// Cooley-Tukey: (u, v) -> (u + v w, u - v w).
+__device__ __forceinline__ void ct(uint32_t &u, uint32_t &v, uint2 w, uint32_t q) {
+  const uint32_t t = shoup_mul(v, w.x, w.y, q);
+  v = mod_sub(u, t, q);
+  u = mod_add(u, t, q);
+}
+
+// Gentleman-Sande: (u, v) -> (u + v, (u - v) w).
+__device__ __forceinline__ void gs(uint32_t &u, uint32_t &v, uint2 w, uint32_t q) {
+  const uint32_t d = mod_sub(u, v, q);
+  u = mod_add(u, v, q);
+  v = shoup_mul(d, w.x, w.y, q);
+}
+
+// The same with the twiddle w = t * c given as two factors (each with its
+// Shoup companion): psis[x | y] = psis[x] * psis[y] for disjoint bits,
+// because the exponent brv(x | y) = brv(x) + brv(y).
+__device__ __forceinline__ uint32_t mul2(uint32_t x, uint2 t, uint2 c, uint32_t q) {
+  return shoup_mul(shoup_mul(x, t.x, t.y, q), c.x, c.y, q);
+}
+__device__ __forceinline__ void ct2(uint32_t &u, uint32_t &v, uint2 t, uint2 c, uint32_t q) {
+  const uint32_t w = mul2(v, t, c, q);
+  v = mod_sub(u, w, q);
+  u = mod_add(u, w, q);
+}
+__device__ __forceinline__ void gs2(uint32_t &u, uint32_t &v, uint2 t, uint2 c, uint32_t q) {
+  const uint32_t d = mod_sub(u, v, q);
+  u = mod_add(u, v, q);
+  v = mul2(d, t, c, q);
+}
+
+// Row pass over contiguous sub-blocks of 256 elements: the last 8 stages
+// of the forward transform or the first 8 of the inverse.  Block (row,
+// tile) holds SB = 1 << lsb sub-blocks, one per warp.  A warp moves its
+// sub-block between three register layouts through its own 1 KiB of
+// shared memory (a __syncwarp each way), so every stage runs in registers:
+//   A: x[r] is element (r << 5) | l              (bits 7..5 in registers)
+//   B: x[k] is element (l >> 2) << 5 | k << 2 | (l & 3)   (bits 4..2)
+//   C: x[g * 4 + k] is element g << 7 | l << 2 | k   (bits 1..0, and 7)
+// for lane l.  Word i of the warp's block lies at swz(i), which puts the
+// 32 lanes of every layout's access on 32 distinct banks.  Table blocks
+// v < 5 (31 twiddles per sub-block) are staged; a twiddle of blocks 5-7,
+// psis[(1 << (a + v)) + (blk << v) + g] with g < 2^v, is the product of
+// the sub-block's factor c_v = psis[(1 << (a + v)) + (blk << v)] (held in
+// registers) and psis[g] (128 entries staged once per block, shared by its
+// sub-blocks): a second Shoup product per butterfly in place of 224 staged
+// twiddles per sub-block.
+__device__ __forceinline__ int swz(int i) {
+  const int h = (i >> 5) & 7;
+  return i ^ (h << 2) ^ (h & 3);
+}
+enum { LAY_A, LAY_B, LAY_C };
+
+template <int LAY>
+__device__ __forceinline__ int lay(int e, int l) {
+  if constexpr (LAY == LAY_A) return (e << 5) | l;
+  if constexpr (LAY == LAY_B) return ((l >> 2) << 5) | (e << 2) | (l & 3);
+  return ((e >> 2) << 7) | (l << 2) | (e & 3);
+}
+
+template <int FROM, int TO>
+__device__ __forceinline__ void relayout(uint32_t (&x)[8], uint32_t *s, int l) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[swz(lay<FROM>(e, l))] = x[e];
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = s[swz(lay<TO>(e, l))];
+  __syncwarp();
+}
+
+template <bool INV>
+__global__ void __launch_bounds__(128)
+    ntt_rows_kernel(uint32_t *__restrict__ out, const uint32_t *__restrict__ in,
+                    int64_t in_bstride, const int32_t *__restrict__ perm,
+                    int64_t perm_bstride, int first, int last,
+                    const int32_t *__restrict__ limb_idx, int L, int logn,
+                    int lsb, const uint32_t *__restrict__ tw,
+                    const uint32_t *__restrict__ tw_sh,
+                    const uint32_t *__restrict__ qs,
+                    const uint32_t *__restrict__ ninv,
+                    const uint32_t *__restrict__ ninv_sh) {
+  constexpr int B = kMaxRowBits, KS = 5, NT = 1 << (B - 1);
+  // staged twiddles of blocks v < KS (31 << lsb), psis[0..NT), then data
+  extern __shared__ uint2 stw[];
+  const int n = 1 << logn, a = logn - B;
+  const size_t row = blockIdx.x;
+  const int li = (int)(row % L), limb = limb_idx[li];
+  const size_t bi = row / L;
+  const uint32_t q = qs[limb];
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int blk0 = blockIdx.y << lsb;
+  const int base = (blk0 + warp) << B;
+  const uint2 *tt = stw + (((1 << KS) - 1) << lsb);
+  uint32_t *s = reinterpret_cast<uint32_t *>(stw + (((1 << KS) - 1) << lsb) + NT) + (warp << B);
+  uint32_t x[8];
+  if (first) {
+    const uint32_t *src = in + bi * in_bstride + (size_t)li * n;
+    if (perm) {
+      const int32_t *pr = perm + bi * perm_bstride;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = src[pr[base + lay<LAY_A>(r, l)]];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = src[base + lay<LAY_A>(r, l)];
+    }
+  } else {
+    const uint32_t *src = out + row * n;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) x[r] = src[base + lay<LAY_A>(r, l)];
+  }
+  const uint32_t *wl = tw + (size_t)limb * n, *wshl = tw_sh + (size_t)limb * n;
+  stage_twiddles(stw, wl, wshl, a, KS, lsb, blk0);
+  for (int g = threadIdx.x; g < NT; g += blockDim.x)
+    stw[(((1 << KS) - 1) << lsb) + g] = make_uint2(__ldg(wl + g), __ldg(wshl + g));
+  uint2 c[B - KS];  // c[v - KS], v = 5..7
+#pragma unroll
+  for (int v = KS; v < B; ++v) {
+    const int e = (1 << (a + v)) + ((blk0 + warp) << v);
+    c[v - KS] = make_uint2(__ldg(wl + e), __ldg(wshl + e));
+  }
+  __syncthreads();
+  // the staged twiddles of table block v < KS (stage v forward, B-1-v inverse)
+#define TWB(v) (stw + ((((1 << (v)) - 1) << lsb) + (warp << (v))))
+  if (!INV) {
+    // stage ul pairs index bit 7-ul; its twiddle group is index >> (8-ul)
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {  // bits 7..5, layout A
+      const uint2 *w = TWB(u);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (!(r & (4 >> u))) ct(x[r], x[r + (4 >> u)], w[r >> (3 - u)], q);
+    }
+    relayout<LAY_A, LAY_B>(x, s, l);
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {  // bits 4..2, layout B; blocks 3, 4 staged, 5 a product
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (!(k & (4 >> u))) {
+          const int g = ((l >> 2) << u) | (k >> (3 - u));
+          if (u < 2)
+            ct(x[k], x[k + (4 >> u)], TWB(3 + u)[g], q);
+          else
+            ct2(x[k], x[k + (4 >> u)], tt[g], c[0], q);
+        }
+    }
+    relayout<LAY_B, LAY_C>(x, s, l);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // bits 1..0, layout C; blocks 6, 7 as products
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (!(e & (2 >> u)))
+          ct2(x[e], x[e + (2 >> u)], tt[((e >> 2) << (5 + u)) | (l << u) | ((e & 3) >> (2 - u))],
+              c[1 + u], q);
+    }
+    relayout<LAY_C, LAY_A>(x, s, l);
+  } else {
+    // stage ul pairs index bit ul; its twiddle group is index >> (ul+1),
+    // its table block v = 7-ul
+    relayout<LAY_A, LAY_C>(x, s, l);
+#pragma unroll
+    for (int ul = 0; ul < 2; ++ul) {  // bits 0..1, layout C; blocks 7, 6 as products
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (!(e & (1 << ul)))
+          gs2(x[e], x[e + (1 << ul)],
+              tt[((e >> 2) << (6 - ul)) | (l << (1 - ul)) | ((e & 3) >> (ul + 1))], c[2 - ul], q);
+    }
+    relayout<LAY_C, LAY_B>(x, s, l);
+#pragma unroll
+    for (int ul = 2; ul < 5; ++ul) {  // bits 2..4, layout B; block 5 a product, 4, 3 staged
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (!(k & (1 << (ul - 2)))) {
+          const int g = ((l >> 2) << (4 - ul)) | (k >> (ul - 1));
+          if (ul == 2)
+            gs2(x[k], x[k + 1], tt[g], c[0], q);
+          else
+            gs(x[k], x[k + (1 << (ul - 2))], TWB(7 - ul)[g], q);
+        }
+    }
+    relayout<LAY_B, LAY_A>(x, s, l);
+#pragma unroll
+    for (int ul = 5; ul < 8; ++ul) {  // bits 5..7, layout A
+      const uint2 *w = TWB(7 - ul);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (!(r & (1 << (ul - 5)))) gs(x[r], x[r + (1 << (ul - 5))], w[r >> (ul - 4)], q);
+    }
+    if (last) {
+      const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = shoup_mul(x[r], ni, nish, q);
+    }
+  }
+#undef TWB
+  uint32_t *dst = out + row * n;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) dst[base + lay<LAY_A>(r, l)] = x[r];
+}
+
+// Column pass over the 2^A elements j + i * 2^b of 32 columns j per block:
+// the first A stages of the forward transform (reading `in`, the first
+// pass) or the last A of the inverse (reading `out`, scaling by 1/N).
+// Thread (c, tc), tc < 2^R2, holds 2^R1 elements, R1 + R2 = A, R1 - R2 in
+// {0, 1}, in one of two layouts:
+//   A: x[k] is element i = (k << R2) | tc          (the high index bits)
+//   B: x[g * 2^R2 + k2] is i = ((tc * G + g) << R2) | k2, G = 2^(R1-R2)
+template <bool INV, int R1, int R2>
+__global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
+                                const uint32_t *__restrict__ in,
+                                int64_t in_bstride,
+                                const int32_t *__restrict__ perm,
+                                int64_t perm_bstride,
+                                const int32_t *__restrict__ limb_idx, int L,
+                                int logn, const uint32_t *__restrict__ tw,
+                                const uint32_t *__restrict__ tw_sh,
+                                const uint32_t *__restrict__ qs,
+                                const uint32_t *__restrict__ ninv,
+                                const uint32_t *__restrict__ ninv_sh) {
+  constexpr int A = R1 + R2, E = 1 << R1, K2 = 1 << R2, G = 1 << (R1 - R2);
+  extern __shared__ uint2 stw[];  // 2^A - 1 twiddles, then [2^A][32] data
+  uint32_t *sdat = reinterpret_cast<uint32_t *>(stw + ((1 << A) - 1));
+  const int n = 1 << logn, b = logn - A;
+  const size_t row = blockIdx.x;
+  const int li = (int)(row % L), limb = limb_idx[li];
+  const size_t bi = row / L;
+  const uint32_t q = qs[limb];
+  const int c = threadIdx.x & 31, tc = threadIdx.x >> 5;
+  const int j = (blockIdx.y << 5) + c;
+  uint32_t x[E];
+  stage_twiddles(stw, tw + (size_t)limb * n, tw_sh + (size_t)limb * n, 0, A, 0, 0);
+  uint32_t *dst = out + row * n;
+  if (!INV) {
+    const uint32_t *src = in + bi * in_bstride + (size_t)li * n;
+    const int32_t *pr = perm ? perm + bi * perm_bstride : nullptr;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int idx = j + (((k << R2) | tc) << b);
+      x[k] = pr ? src[pr[idx]] : src[idx];
+    }
+    __syncthreads();
+    // global stage u pairs bit A-1-u of i; its twiddle group is i >> (A-u)
+#pragma unroll
+    for (int u = 0; u < R1; ++u) {
+      const int h = E >> (u + 1);
+      const uint2 *w = stw + ((1 << u) - 1);
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        if (!(k & h)) ct(x[k], x[k + h], w[k >> (R1 - u)], q);
+    }
+    if constexpr (R2 > 0) {
+#pragma unroll
+      for (int k = 0; k < E; ++k) sdat[(((k << R2) | tc) << 5) + c] = x[k];
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int k2 = 0; k2 < K2; ++k2)
+          x[g * K2 + k2] = sdat[((((tc * G + g) << R2) | k2) << 5) + c];
+#pragma unroll
+      for (int u = 0; u < R2; ++u) {
+        const int h = K2 >> (u + 1);
+        const uint2 *w = stw + ((1 << (R1 + u)) - 1);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int k2 = 0; k2 < K2; ++k2)
+            if (!(k2 & h))
+              ct(x[g * K2 + k2], x[g * K2 + k2 + h],
+                 w[((tc * G + g) << u) | (k2 >> (R2 - u))], q);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int k2 = 0; k2 < K2; ++k2)
+          dst[j + ((((tc * G + g) << R2) | k2) << b)] = x[g * K2 + k2];
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) dst[j + (((k << R2) | tc) << b)] = x[k];
+    }
+  } else {
+    // local stage u pairs bit u of i; its twiddle group is i >> (u+1), its
+    // table block v = A-1-u
+    if constexpr (R2 > 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int k2 = 0; k2 < K2; ++k2)
+          x[g * K2 + k2] = dst[j + ((((tc * G + g) << R2) | k2) << b)];
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < R2; ++u) {
+        const int h = 1 << u;
+        const uint2 *w = stw + ((1 << (A - 1 - u)) - 1);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int k2 = 0; k2 < K2; ++k2)
+            if (!(k2 & h))
+              gs(x[g * K2 + k2], x[g * K2 + k2 + h],
+                 w[((tc * G + g) << (R2 - u - 1)) | (k2 >> (u + 1))], q);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int k2 = 0; k2 < K2; ++k2)
+          sdat[((((tc * G + g) << R2) | k2) << 5) + c] = x[g * K2 + k2];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < E; ++k) x[k] = sdat[(((k << R2) | tc) << 5) + c];
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) x[k] = dst[j + (((k << R2) | tc) << b)];
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < R1; ++u) {
+      const int h = 1 << u;
+      const uint2 *w = stw + ((1 << (R1 - 1 - u)) - 1);
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        if (!(k & h)) gs(x[k], x[k + h], w[k >> (u + 1)], q);
+    }
+    const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      dst[j + (((k << R2) | tc) << b)] = shoup_mul(x[k], ni, nish, q);
+  }
+}
+
+struct Args {
+  uint32_t *out;
+  const uint32_t *in;
+  int64_t in_bstride;
+  const int32_t *perm;
+  int64_t perm_bstride;
+  const int32_t *limb_idx;
+  unsigned rows;
+  int L, logn;
+  const uint32_t *tw, *tw_sh, *qs, *ninv, *ninv_sh;
+  cudaStream_t st;
+};
+
+template <bool INV>
+void rows_pass(const Args &g, int first, int last) {
+  constexpr int B = kMaxRowBits, KS = 5, NT = 1 << (B - 1);
+  const int a = g.logn - B, lsb = a < 2 ? a : 2;
+  const dim3 grid(g.rows, 1u << (a - lsb));
+  const size_t smem = ((size_t)(((1 << KS) - 1) << lsb) + NT) * sizeof(uint2) +
+                      ((size_t)1 << (B + lsb)) * sizeof(uint32_t);
+  ntt_rows_kernel<INV><<<grid, 32 << lsb, smem, g.st>>>(
+      g.out, g.in, g.in_bstride, g.perm, g.perm_bstride, first, last, g.limb_idx,
+      g.L, g.logn, lsb, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+}
+
+template <bool INV, int R1, int R2>
+void cols_pass(const Args &g) {
+  constexpr int A = R1 + R2;
+  const dim3 grid(g.rows, 1u << (g.logn - A - 5));
+  const size_t smem = ((1 << A) - 1) * sizeof(uint2) + (size_t)(32 << A) * sizeof(uint32_t);
+  ntt_cols_kernel<INV, R1, R2><<<grid, 32 << R2, smem, g.st>>>(
+      g.out, g.in, g.in_bstride, g.perm, g.perm_bstride, g.limb_idx, g.L, g.logn,
+      g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+}
+
+template <bool INV>
+void cols_dispatch(const Args &g, int a) {
+  switch (a) {
+    case 1: cols_pass<INV, 1, 0>(g); break;
+    case 2: cols_pass<INV, 1, 1>(g); break;
+    case 3: cols_pass<INV, 2, 1>(g); break;
+    case 4: cols_pass<INV, 2, 2>(g); break;
+    case 5: cols_pass<INV, 3, 2>(g); break;
+    case 6: cols_pass<INV, 3, 3>(g); break;
+    case 7: cols_pass<INV, 4, 3>(g); break;
+    default: cols_pass<INV, 4, 4>(g); break;
+  }
+}
+
+}  // namespace
+
+// rows = batch * L rows of n = 2^logn residues, 8 <= logn <= 16; row
+// r = (b, i) reads in + b * in_bstride + i * n (through perm + b *
+// perm_bstride when perm is not NULL; perm_bstride 0 shares one
+// permutation) and uses table row limb_idx[i].  tw/tw_sh are psis/psis_sh
+// (forward) or ipsis/ipsis_sh (inverse), [Ltot, n].  out is [rows, n]; it
+// may alias in when in is contiguous and perm is NULL (each block reads all
+// of its tile before it writes it).  The pass after the first reads and
+// writes out in place.
 extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
                          const void *perm, int64_t perm_bstride,
-                         const void *limb_idx,
-                         int64_t rows, int64_t L, int64_t logn, const void *tw,
-                         const void *tw_sh, const void *qs, const void *ninv,
-                         const void *ninv_sh, int64_t inverse, void *stream) {
-  const int n = 1 << logn;
-  const size_t smem = (size_t)n * sizeof(uint32_t);
-  const int threads = n / 2 < 1024 ? n / 2 : 1024;
-  cudaStream_t st = (cudaStream_t)stream;
+                         const void *limb_idx, int64_t rows, int64_t L,
+                         int64_t logn, const void *tw, const void *tw_sh,
+                         const void *qs, const void *ninv, const void *ninv_sh,
+                         int64_t inverse, void *stream) {
   if (rows == 0) return 0;
-  if (inverse) {
-    cudaFuncSetAttribute(ntt_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    ntt_kernel<true><<<(unsigned)rows, threads, smem, st>>>(
-        (uint32_t *)out, (const uint32_t *)in, in_bstride,
-        (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
-        (int)L, (int)logn, (const uint32_t *)tw, (const uint32_t *)tw_sh,
-        (const uint32_t *)qs, (const uint32_t *)ninv,
-        (const uint32_t *)ninv_sh);
+  if (logn < kMaxRowBits || logn > 2 * kMaxRowBits || rows > 0x7fffffff || L < 1)
+    return (int)cudaErrorInvalidValue;
+  const Args g{(uint32_t *)out, (const uint32_t *)in, in_bstride,
+               (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
+               (unsigned)rows, (int)L, (int)logn, (const uint32_t *)tw,
+               (const uint32_t *)tw_sh, (const uint32_t *)qs,
+               (const uint32_t *)ninv, (const uint32_t *)ninv_sh,
+               (cudaStream_t)stream};
+  const int a = (int)logn - kMaxRowBits;
+  if (!inverse) {
+    if (a > 0) {
+      cols_dispatch<false>(g, a);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    rows_pass<false>(g, a == 0, 1);
   } else {
-    cudaFuncSetAttribute(ntt_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    ntt_kernel<false><<<(unsigned)rows, threads, smem, st>>>(
-        (uint32_t *)out, (const uint32_t *)in, in_bstride,
-        (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
-        (int)L, (int)logn, (const uint32_t *)tw, (const uint32_t *)tw_sh,
-        (const uint32_t *)qs, (const uint32_t *)ninv,
-        (const uint32_t *)ninv_sh);
+    rows_pass<true>(g, 1, a == 0);
+    if (a > 0) {
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+      cols_dispatch<true>(g, a);
+    }
   }
   return (int)cudaGetLastError();
 }

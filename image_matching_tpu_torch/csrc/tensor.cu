@@ -14,31 +14,37 @@
 // four residues and writes three with four Montgomery products; the
 // decrypt MAC reads k residues plus the key and writes one.  Design: one
 // thread per (batch row, limb, coefficient), coalesced on the
-// coefficient; operands are read in place through their component stride,
-// so a ciphertext dropped to fewer limbs (a view) is not copied.
+// coefficient; operands are read in place through their batch and
+// component strides, so a ciphertext dropped to fewer limbs (a view) is not
+// copied.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "modmath.cuh"
 
 __global__ void tensor_kernel(uint32_t *__restrict__ out,
-                              const uint32_t *__restrict__ x, int64_t xc,
-                              const uint32_t *__restrict__ y, int64_t yc,
-                              int square, const uint32_t *__restrict__ qs,
+                              const uint32_t *__restrict__ x, int64_t xb,
+                              int64_t xc, const uint32_t *__restrict__ y,
+                              int64_t yb, int64_t yc, int square,
+                              const uint32_t *__restrict__ qs,
                               const uint32_t *__restrict__ qneg, int l, int n) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const int i = blockIdx.y;
+  const size_t b = blockIdx.z;
   const uint32_t q = qs[i], qn = qneg[i];
   const size_t p = (size_t)i * n + k;
-  const uint32_t x0 = x[p], x1 = x[xc + p];
   const size_t so = (size_t)l * n;
+  x += b * xb;
+  out += b * 3 * so;
+  const uint32_t x0 = x[p], x1 = x[xc + p];
   if (square) {
     const uint32_t m = mont_mul(x0, x1, q, qn);
     out[p] = mont_mul(x0, x0, q, qn);
     out[so + p] = mod_add(m, m, q);
     out[2 * so + p] = mont_mul(x1, x1, q, qn);
   } else {
+    y += b * yb;
     const uint32_t y0 = y[p], y1 = y[yc + p];
     out[p] = mont_mul(x0, y0, q, qn);
     out[so + p] = mod_add(mont_mul(x0, y1, q, qn), mont_mul(x1, y0, q, qn), q);
@@ -69,18 +75,19 @@ __global__ void decrypt_mac_kernel(uint32_t *__restrict__ out,
   out[b * l * (size_t)n + p] = mont_mul(m, 1u, q, qn);
 }
 
-// x, y: [2, >= l, n] with component strides xc, yc (y ignored when
-// square); out: [3, l, n].
-extern "C" int imtpu_tensor(void *out, const void *x, int64_t xc,
-                            const void *y, int64_t yc, int64_t square,
-                            const void *qs, const void *qneg, int64_t l,
-                            int64_t n, void *stream) {
-  if (l == 0) return 0;
+// x, y: B ciphertexts [2, >= l, n] with batch strides xb, yb and component
+// strides xc, yc (y ignored when square); out: [B, 3, l, n].
+extern "C" int imtpu_tensor(void *out, const void *x, int64_t xb, int64_t xc,
+                            const void *y, int64_t yb, int64_t yc,
+                            int64_t square, const void *qs, const void *qneg,
+                            int64_t B, int64_t l, int64_t n, void *stream) {
+  if (B == 0 || l == 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)l);
+  dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)l, (unsigned)B);
   tensor_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (uint32_t *)out, (const uint32_t *)x, xc, (const uint32_t *)y, yc,
-      (int)square, (const uint32_t *)qs, (const uint32_t *)qneg, (int)l,
+      (uint32_t *)out, (const uint32_t *)x, xb, xc, (const uint32_t *)y, yb,
+      yc, (int)square, (const uint32_t *)qs, (const uint32_t *)qneg, (int)l,
       (int)n);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ tensors; the modular sums of many rows launch K11's row sum
 (``mm.row_sum``).  The JAX module's jit runners and segments have no
 counterpart (PyTorch runs eagerly), and its ``vmap``/``lax.map`` over
 score ciphertexts, DB batches and groups become Python loops or a leading
-batch axis in chunks of ``CkksContext.ROW_CHUNK``.
+batch axis in chunks of ``CkksContext.ROW_CHUNK`` (of ``compare_chunk()``
+for the compare circuit).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+import os
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +77,14 @@ def ct_dot(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return out if blocked else out[0]
 
 
+def compare_chunk() -> int:
+    """Scores per stack of the compare circuit: ``IMTPU_COMPARE_CHUNK``, 16
+    by default (the JAX package's knob).  Each score of a stack holds about
+    deg/2 ciphertexts of Chebyshev basis at once, so the chunk bounds the
+    circuit's device memory (``streaming._reserve_bytes``)."""
+    return int(os.environ.get("IMTPU_COMPARE_CHUNK", "16"))
+
+
 class Sender:
     """Abstract sender (reference include/sender.h)."""
 
@@ -83,13 +93,38 @@ class Sender:
         self.cfg = cfg
         self.num_vectors = num_vectors
 
-    def _compare_many(self, scores: List[Ciphertext]) -> List[Ciphertext]:
-        """chebyshevCompare over each score ciphertext."""
+    def _compare_many(self, scores: Iterable[Ciphertext]) -> List[Ciphertext]:
+        """chebyshevCompare over a batch of same-shape score ciphertexts."""
         return self._compare_many_with(scores, self.cfg.match_threshold)
 
-    def _compare_many_with(self, scores: List[Ciphertext], thr: float) -> List[Ciphertext]:
-        depth = self.cfg.comp_depth
-        return [poly_eval.chebyshev_compare(self.ctx, s, thr, depth) for s in scores]
+    def _compare_many_with(self, scores: Iterable[Ciphertext], thr: float) -> List[Ciphertext]:
+        """One score alone takes one compare circuit; more are stacked,
+        [B, 2, l, N], up to ``compare_chunk()`` per stack, and each stack
+        takes one compare circuit (the JAX package's vmap over the scores
+        and its segments' chunks).  No op of the circuit reduces across the
+        stack, so each flag equals that score's own, residue for residue."""
+        scores = list(scores)
+        if len(scores) == 1:
+            return [poly_eval.chebyshev_compare(self.ctx, scores[0], thr, self.cfg.comp_depth)]
+        chunk = compare_chunk()
+        out: List[Ciphertext] = []
+        for i in range(0, len(scores), chunk):
+            out += self._compare_stack(scores[i : i + chunk], thr)
+        return out
+
+    def _compare_stack(self, scores: List[Ciphertext], thr: float) -> List[Ciphertext]:
+        """One compare circuit over the stack of ``scores`` (one shape, one
+        scale) -> their flags."""
+        scale = scores[0].scale
+        shape = scores[0].data.shape
+        for s in scores[1:]:
+            self.ctx._check_scales(scale, s.scale)
+            if s.data.shape != shape:
+                raise ValueError(f"compare: scores of shapes {tuple(shape)} and "
+                                 f"{tuple(s.data.shape)} in one stack")
+        stack = Ciphertext(torch.stack([s.data for s in scores]), scale)
+        flags = poly_eval.chebyshev_compare(self.ctx, stack, thr, self.cfg.comp_depth)
+        return [Ciphertext(d, flags.scale) for d in flags.data]
 
     def _membership_reduce(self, flags: List[Ciphertext]) -> Ciphertext:
         """EvalAddManyInPlace + EvalSum(batch): flags of one shape and

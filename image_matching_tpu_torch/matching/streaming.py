@@ -34,11 +34,12 @@ from __future__ import annotations
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ckks import poly_eval
 from ..ckks.context import CkksContext, Ciphertext
 from . import senders
 from .config import MatchConfig
@@ -101,16 +102,25 @@ def _key_bytes(ctx: CkksContext) -> int:
     return ctx.dnum * 2 * ctx.Ltot * ctx.n * 4
 
 
+def _compare_basis_bytes(ctx: CkksContext, cfg: MatchConfig) -> int:
+    """One compare stack's Chebyshev basis: about deg/2 ciphertexts
+    [2, L, N] per score (the JAX package's note on its compare chunk), for
+    ``senders.compare_chunk()`` scores."""
+    per_score = poly_eval.DEPTH_TO_DEGREE[cfg.comp_depth] // 2 * 2 * ctx.Lq * ctx.n * 4
+    return senders.compare_chunk() * per_score
+
+
 def _reserve_bytes(ctx: CkksContext, cfg: MatchConfig, rotations: int, query_groups: int) -> int:
     """Device memory setup and a query need beside the resident groups: the
     rotation keys setup generates after enrollment (the power-of-two keys
     plus the sender's ``rotations``), ``query_groups`` groups' worth of
-    query ciphertexts held across the query, and six groups' worth of
-    working set (the sender's [dim, 2, L, N] stack, two prefetch staging
-    buffers, and two groups of headroom for enrollment's and the query
-    encryption's transients and the compare circuit)."""
+    query ciphertexts held across the query, six groups' worth of working
+    set (the sender's [dim, 2, L, N] stack, two prefetch staging buffers,
+    and two groups of headroom for enrollment's and the query encryption's
+    transients), and one compare stack's Chebyshev basis."""
     keys = 2 * int(math.log2(ctx.slots)) + rotations
-    return keys * _key_bytes(ctx) + (6 + query_groups) * _group_bytes(ctx, cfg)
+    return (keys * _key_bytes(ctx) + (6 + query_groups) * _group_bytes(ctx, cfg)
+            + _compare_basis_bytes(ctx, cfg))
 
 
 def _hbm_budget_bytes(ctx: CkksContext, reserve: int) -> int:
@@ -347,8 +357,10 @@ def _group_stacks(store: SeededStore, ctx: CkksContext,
 class _StreamedSender(senders.Sender):
     """A sender over a SeededStore: the groups streamed one at a time
     through ``_group_stacks`` (prefetch, K5 c1 into the reused stack), and
-    each score's compare circuit run as soon as the score exists, so a
-    host-tier group's copy overlaps the previous group's compare.
+    the compare circuit run over each full chunk of ``compare_chunk()``
+    scores as soon as the chunk exists (the remainder at the end), as the
+    JAX package's streaming loop dispatches it; the next host-tier group's
+    copy is issued before the chunk's compare, so the two overlap.
     Subclasses give ``_query_stack`` and ``_group_compute``."""
 
     def __init__(self, ctx: CkksContext, cfg: MatchConfig, store: SeededStore):
@@ -369,7 +381,7 @@ class _StreamedSender(senders.Sender):
             yield self._group_compute(Q, dbd)
 
     def _stream_and_compare(self, query: List[Ciphertext]) -> List[Ciphertext]:
-        return self._compare_many(self._similarity_stream(query))
+        return [f for _, f in compare_in_chunks(self, enumerate(self._similarity_stream(query)))]
 
     def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
         return list(self._similarity_stream(query))
@@ -379,6 +391,28 @@ class _StreamedSender(senders.Sender):
 
     def run_index(self, query_cts: List[Ciphertext]) -> List[Ciphertext]:
         return self._stream_and_compare(query_cts)
+
+
+def compare_in_chunks(sender: senders.Sender, scores: Iterable[Tuple]) -> List[Tuple]:
+    """(key, flag) for each (key, score) of the iterator ``scores``, taken a
+    chunk of ``compare_chunk()`` at a time: each full chunk is compared
+    before the next score is asked for, the remainder at the end."""
+    chunk = senders.compare_chunk()
+    out: List[Tuple] = []
+    pending: List[Tuple] = []
+
+    def flush():
+        flags = sender._compare_many([s for _, s in pending])
+        out.extend(zip((k for k, _ in pending), flags))
+        pending.clear()
+
+    for item in scores:
+        pending.append(item)
+        if len(pending) == chunk:
+            flush()
+    if pending:
+        flush()
+    return out
 
 
 class StreamedDiagonalSender(_StreamedSender):
@@ -406,12 +440,21 @@ class StreamedDiagonalSender(_StreamedSender):
 class StreamedHersSender(_StreamedSender):
     """Approach 4 (HERS) over a HersStore: score(m) = sum_j q_j (*) d_{m,j}
     (reference src/sender/sender_hers.cpp) on the streamed groups.  The
-    dim-ciphertext query is stacked once and stays on the device across
-    the groups."""
+    dim-ciphertext query is stacked once, as given, and stays on the device
+    across the groups.  As the JAX package's streamed sender, it always
+    runs one contraction (K2), relinearization and rescale per group, at
+    the fresh product scale, whatever ``faithful_hers`` and
+    ``hers_alt_query`` say (the in-memory ``HersSender`` honours both)."""
 
-    def _query_stack(self, query: List[Ciphertext]):
-        return senders.hers_query_stack(self.ctx, self.cfg, query)
+    def _query_stack(self, query: List[Ciphertext]) -> torch.Tensor:
+        if len(query) != self.cfg.vector_dim:
+            raise ValueError(
+                f"streamed HERS takes a query of {self.cfg.vector_dim} ciphertexts, got "
+                f"{len(query)} (the JAX package's streamed sender does not expand the "
+                "alt query's single ciphertext either)")
+        return torch.stack([c.data for c in query])
 
-    def _group_compute(self, Q, dbd: torch.Tensor) -> Ciphertext:
-        Qd, sq = Q
-        return senders.hers_matrix_score(self.ctx, self.cfg, Qd, dbd, sq, self.store.scale)
+    def _group_compute(self, Q: torch.Tensor, dbd: torch.Tensor) -> Ciphertext:
+        t3 = senders.ct_dot(self.ctx, Q, dbd)
+        return self.ctx.rescale_score(self.ctx.relinearize(
+            Ciphertext(t3, self.ctx.fresh_scale * self.store.scale)))

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -47,11 +48,11 @@ _ENTRIES = {
     "imtpu_rescale_lift": "ppiipppiii",
     "imtpu_sub_scale": "ppipppppiiipiiii",
     "imtpu_decompose": "ppippiiii",
-    "imtpu_tensor": "ppipiippii",
+    "imtpu_tensor": "ppiipiiippiii",
     "imtpu_decrypt_mac": "ppiiipppiii",
     "imtpu_pk_pre": "ppppppppiii",
     "imtpu_pk_mac": "ppppppiii",
-    "imtpu_modarith": "ppipiiiiiiipp",
+    "imtpu_modarith": "ppipiiiiiiiipp",
     "imtpu_mod_sum": "ppiiiiip",
     "imtpu_psum_mod": "ppiiiip",
 }
@@ -67,6 +68,9 @@ KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
            "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith", "mod_sum",
            "psum_mod")
 _counts = {k: 0 for k in KERNELS}
+# the sharded scenarios launch from one thread per card: a count's
+# read-modify-write is guarded so that none is lost
+_counts_lock = threading.Lock()
 
 _lib = None
 build_seconds = None  # wall time of the build in this process, if one ran
@@ -78,8 +82,9 @@ def counts() -> dict:
 
 
 def reset_counts():
-    for k in _counts:
-        _counts[k] = 0
+    with _counts_lock:
+        for k in _counts:
+            _counts[k] = 0
 
 
 def sources():
@@ -239,4 +244,10 @@ def launch(entry: str, counter: str, out: torch.Tensor, *args):
     if rc != 0:
         msg = L.imtpu_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
-    _counts[counter] += 1
+    count(counter)
+
+
+def count(counter: str):
+    """Add one launch to ``counter`` (thread-safe)."""
+    with _counts_lock:
+        _counts[counter] += 1

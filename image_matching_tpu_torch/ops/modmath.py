@@ -108,9 +108,9 @@ def residue_op_plain(op: str, a, b, q, rinv, head: Optional[int] = None):
         b = b[0]
     fn = {"add": lambda x: mod_add(x, b, q), "sub": lambda x: mod_sub(x, b, q),
           "neg": lambda x: mod_neg(x, q), "mul": lambda x: mont_mul(x, b, q, rinv)}[op]
-    if head is None or head >= a.shape[0]:
+    if head is None or head >= a.shape[-3]:
         return fn(a)
-    return torch.cat([fn(a[:head]), a[head:].int()])
+    return torch.cat([fn(a[..., :head, :, :]), a[..., head:, :, :].int()], dim=-3)
 
 
 def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = None):
@@ -118,17 +118,20 @@ def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = Non
     mod q (op "add", "sub", "neg", "mul") over residues a [..., l, N] of
     limbs 0..l-1.  b is a tensor of a's shape, an [l, N] plane broadcast
     over a's leading axes (a plaintext), or a per-limb constant given as the
-    pair (int64 [l, 1], int32 [l]).  With ``head`` (a [k, l, N]), the op
-    applies to a[:head] (b then has a[:head]'s shape or broadcasts) and
-    a[head:] passes through.  Kernel K11 for CUDA tensors, the plain version
-    for CPU tensors."""
+    pair (int64 [l, 1], int32 [l]).  With ``head`` (a [..., k, l, N], any
+    leading batch axes), the op applies to the first ``head`` components
+    of every ciphertext, a[..., :head, :, :] (b then has that shape or
+    broadcasts), and the others pass through.  No element depends on
+    another ciphertext of the batch.  Kernel K11 for CUDA tensors, the
+    plain version for CPU tensors."""
     if not a.is_cuda:
         return residue_op_plain(op, a, b, m.q, m.rinv, head)
     l, n = a.shape[-2], a.shape[-1]
-    if op not in OPS or l > m.q32.numel() or (head is not None and a.dim() != 3):
+    if op not in OPS or l > m.q32.numel() or (head is not None and a.dim() < 3):
         raise ValueError(f"residue_op: {op} on {tuple(a.shape)} (head {head})")
     src, B, a_bstride = kernels.row_blocks(a)
-    head_el = B * l * n if head is None else min(head, a.shape[0]) * l * n
+    kcomp = 1 if head is None else a.shape[-3]
+    headk = 1 if head is None else min(head, kcomp)
     bt, b_bstride, b_mode = None, 0, 0
     if op != "neg":
         if isinstance(b, tuple):
@@ -140,7 +143,7 @@ def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = Non
             if tuple(bt.shape) != (l, n):
                 raise ValueError(f"residue_op: plane {tuple(b.shape)} against {tuple(a.shape)}")
         else:
-            want = a.shape if head is None else (min(head, a.shape[0]),) + tuple(a.shape[1:])
+            want = a.shape if head is None else (*a.shape[:-3], headk, l, n)
             if tuple(b.shape) != tuple(want):
                 raise ValueError(f"residue_op: operand {tuple(b.shape)} against {tuple(want)}")
             bt, _, b_bstride = kernels.row_blocks(b)
@@ -149,7 +152,7 @@ def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = Non
     kernels.check_cuda("residue_op", m.q32, m.qneg32)
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
     kernels.launch("imtpu_modarith", "modarith", out, kernels.ptr(src), a_bstride,
-                   kernels.ptr(bt), b_bstride, b_mode, OPS[op], head_el, B, l, n,
+                   kernels.ptr(bt), b_bstride, b_mode, OPS[op], kcomp, headk, B, l, n,
                    kernels.ptr(m.q32), kernels.ptr(m.qneg32))
     return out
 

@@ -14,14 +14,16 @@ wiring over these tables is bit-identical to the JAX plan, and
 CUDA tensor and run the plain torch version (``ntt_fwd_plain`` /
 ``ntt_inv_plain``) for a CPU tensor.  K1 reads a strided batch of limb
 blocks in place and can gather the input through an automorphism
-permutation on its way in.  The JAX plan's uniform-stage loop
+permutation on its way in; it runs as two passes (strided columns, then
+contiguous sub-blocks; mirrored for the inverse), so many blocks share a
+row and few-row launches still fill the card.  The JAX plan's uniform-stage loop
 tables exist only to keep XLA graphs small and are not ported.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +31,8 @@ import torch
 from . import kernels
 from . import modmath as mm
 
-MAX_KERNEL_N = 1 << 15  # one row in shared memory: N * 4 B <= 227 KiB
+MIN_KERNEL_N = 1 << 8   # K1's row pass: a warp holds a sub-block of 256
+MAX_KERNEL_N = 1 << 16  # K1's two passes: 2^8 x 2^8
 
 
 def _bit_reverse_perm(n: int) -> np.ndarray:
@@ -150,6 +153,9 @@ class NttPlan:
                      dtype=np.uint32), dev)
         self.q = mm.to_tensor(np.array(primes, dtype=np.uint32), dev)
         self._idx_cache = {}
+        # K1 launches by their row count (batch x limbs), filled only where
+        # K1 launches: which row counts the kernel has to serve
+        self.rows_hist: Dict[int, int] = {}
         # exponent map: eval position j holds m(psi^{exp[j]})
         self._exp = self._derive_exponents()
         pos = np.full(2 * n, -1, dtype=np.int64)
@@ -167,6 +173,7 @@ class NttPlan:
                 setattr(r, k, v.to(dev, copy=True))
         r.device = dev
         r._idx_cache = {}
+        r.rows_hist = {}
         return r
 
     def _derive_exponents(self) -> np.ndarray:
@@ -240,8 +247,8 @@ class NttPlan:
         if L != len(limbs) or n != self.n:
             raise ValueError(f"ntt: data {tuple(a.shape)} does not match "
                              f"{len(limbs)} limbs of N={self.n}")
-        if n > MAX_KERNEL_N:
-            raise ValueError(f"ntt kernel holds a row in shared memory: N <= {MAX_KERNEL_N}")
+        if not MIN_KERNEL_N <= n <= MAX_KERNEL_N:
+            raise ValueError(f"ntt kernel: N must lie in [{MIN_KERNEL_N}, {MAX_KERNEL_N}]")
         src, batch, bstride = kernels.row_blocks(a)
         perm_bstride = 0
         if perm is not None:
@@ -262,6 +269,8 @@ class NttPlan:
             kernels.ptr(idx), batch * L, L, self.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
             kernels.ptr(self.q), kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh),
             int(inverse))
+        rows = batch * L
+        self.rows_hist[rows] = self.rows_hist.get(rows, 0) + 1
         return out
 
 

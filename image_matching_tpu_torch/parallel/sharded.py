@@ -16,7 +16,9 @@ several processes gathers the per-process sums with
 A mesh is a list of devices and may name one device several times: on
 one card, ``make_mesh(devices=["cuda:0"] * 4)`` runs four shards one
 after another with the partition, padding and reduction of four devices.
-Shards that share a device share one context replica.
+Shards that share a device share one context replica and one issuing
+thread; each distinct device has its own thread (``per_device``), so the
+cards work at once.
 
 The sum of canonical residues mod q does not depend on the order or the
 grouping of its terms, and the compare circuit works on each score on its
@@ -29,9 +31,12 @@ package, the padding groups' flags are ~0 and are summed.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -190,6 +195,44 @@ def _replicas(ctx: CkksContext, mesh: Mesh) -> Dict[torch.device, CkksContext]:
     return {dev: ctx.replica(dev) for dev in mesh.distinct()}
 
 
+def per_device(devices: Sequence[torch.device], fn: Callable[[torch.device], Any],
+               windows: Optional[Dict[str, Dict[str, float]]] = None) -> Dict[torch.device, Any]:
+    """{dev: fn(dev)} for each distinct device.  One device runs fn on the
+    calling thread.  Several each get an issuing thread of their own (ctypes
+    launches and torch's device ops release the interpreter lock), with
+    their device current: the JAX package runs its shards as one program
+    over every device at once.  The kernel library is loaded before the
+    threads start; each device's replica, its caches and its streams are
+    touched by its own thread only.  A worker's exception is raised here,
+    after every worker has ended.  With ``windows`` each device's work is
+    timed on the host clock from the call's start: when its thread began
+    issuing, when it had issued everything and when its card had run it
+    (the thread waits for its card there), keyed by the device's name."""
+    devices = list(dict.fromkeys(devices))
+    if len(devices) == 1:
+        return {devices[0]: fn(devices[0])}
+    if any(d.type == "cuda" for d in devices):
+        kernels.lib()
+    t0 = time.perf_counter()
+
+    def work(dev):
+        ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with ctx:
+            start = time.perf_counter()
+            out = fn(dev)
+            issued = time.perf_counter()
+            if windows is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                windows[str(dev)] = {"issue_start_s": start - t0, "issue_end_s": issued - t0,
+                                     "done_s": time.perf_counter() - t0}
+        return out
+
+    with ThreadPoolExecutor(max_workers=len(devices)) as ex:
+        futs = {dev: ex.submit(work, dev) for dev in devices}
+    return {dev: f.result() for dev, f in futs.items()}
+
+
 def _moved(cts: Sequence[Ciphertext], device: torch.device) -> List[Ciphertext]:
     return [Ciphertext(c.data.to(device), c.scale) for c in cts]
 
@@ -242,10 +285,19 @@ class ShardedScenario:
             self.shards.append(senders.shard_view(sender, self.ctxs[dev], block.to(dev)))
 
     def _flags(self, query_cts: List[Ciphertext]) -> List[List[Ciphertext]]:
-        """Each shard's compare flags, computed on its device."""
-        qs = {dev: _moved(query_cts, dev) for dev in self.ctxs}
-        return [shard._compare_many(shard.compute_similarity(qs[dev]))
-                for dev, shard in zip(self.mesh.devices, self.shards)]
+        """Each shard's compare flags, computed on its device (its scores
+        in stacks of ``compare_chunk()``), in mesh order; the shards of one
+        device run in order on its issuing thread (``per_device``)."""
+        def run(dev):
+            q = _moved(query_cts, dev)
+            return {d: shard._compare_many(shard.compute_similarity(q))
+                    for d, (sdev, shard) in enumerate(zip(self.mesh.devices, self.shards))
+                    if sdev == dev}
+
+        self.windows: Dict[str, Dict[str, float]] = {}
+        by_dev = per_device(self.mesh.devices, run, self.windows)
+        flags = {d: f for res in by_dev.values() for d, f in res.items()}
+        return [flags[d] for d in range(self.mesh.size)]
 
     def membership(self, query_cts: List[Ciphertext]) -> Ciphertext:
         """Sum of every shard's flags (K12 on the root), then EvalSum."""
@@ -269,11 +321,12 @@ class ShardedStreamedScenario:
     and ids past the store are padding groups, exact encryptions of 0
     (zero c0 and c1, no K5 launch).  Each distinct device has one reused
     [dim, 2, L, N] stack and one prefetcher (``streaming._group_stacks``),
-    so shards that share a card run one after another on it, and the
-    devices take one group each in turn.  A group already on a shard's
-    device is used in place, one resident on another card is copied card
-    to card, a host-tier group is prefetched.  Each score's compare
-    circuit runs on its shard's device as soon as the score exists.
+    so shards that share a card run one after another on it; each device
+    runs its ids from its own issuing thread.  A group already on a
+    shard's device is used in place, one resident on another card is
+    copied card to card, a host-tier group is prefetched.  The compare
+    circuit runs on each device over a stack of ``compare_chunk()`` scores
+    as soon as the stack exists, the remainder at the end.
 
     Membership leaves the padding groups out: the JAX module zeroes their
     flags before the sum, so they add nothing there either, and the
@@ -290,40 +343,39 @@ class ShardedStreamedScenario:
         n, G = self.mesh.size, self.sender.store.num_groups
         return -(-G // n), n, G
 
-    def _run(self, query_cts: List[Ciphertext], fn, with_pads: bool) -> Dict[int, Any]:
-        """fn(view, score) for the group ids of every shard (padding ids
-        only when ``with_pads``), the distinct devices taking one group
-        each in turn: {group id: result}."""
+    def _run(self, query_cts: List[Ciphertext], compare: bool,
+             with_pads: bool) -> Dict[int, Ciphertext]:
+        """The score of every group id of every shard (padding ids only
+        when ``with_pads``), or with ``compare`` its compare flag, each
+        device's scores taken in stacks of ``compare_chunk()`` as its
+        stream yields them: {group id: ciphertext}.  Each distinct device
+        runs its ids from its own issuing thread (``per_device``)."""
         per, n, G = self._partition()
         ids: Dict[torch.device, List[int]] = {dev: [] for dev in self.ctxs}
         for d, dev in enumerate(self.mesh.devices):
             ids[dev] += [k for k in range(d * per, (d + 1) * per) if with_pads or k < G]
         live = [dev for dev in ids if ids[dev]]
-        Q = {dev: self.views[dev]._query_stack(_moved(query_cts, dev)) for dev in live}
-        streams = {dev: streaming._group_stacks(self.sender.store, self.ctxs[dev], ids[dev])
-                   for dev in live}
-        out: Dict[int, Any] = {}
-        while streams:
-            for dev in list(streams):
-                nxt = next(streams[dev], None)
-                if nxt is None:
-                    del streams[dev]
-                    continue
-                k, stack = nxt
-                view = self.views[dev]
-                out[k] = fn(view, view._group_compute(Q[dev], stack))
-        return out
+
+        def run(dev):
+            view = self.views[dev]
+            Q = view._query_stack(_moved(query_cts, dev))
+            scores = ((k, view._group_compute(Q, stack)) for k, stack in
+                      streaming._group_stacks(self.sender.store, self.ctxs[dev], ids[dev]))
+            return streaming.compare_in_chunks(view, scores) if compare else list(scores)
+
+        self.windows: Dict[str, Dict[str, float]] = {}
+        return {k: c for res in per_device(live, run, self.windows).values() for k, c in res}
 
     def _sharded_scores(self, query_cts: List[Ciphertext]) -> Tuple[torch.Tensor, float, int]:
         """The score of every group id, padding included, stacked on the
         root in order k = d*per + s: ([per*n, 2, l, N], scale, per*n)."""
         per, n, _ = self._partition()
-        res = self._run(query_cts, lambda view, s: s, with_pads=True)
+        res = self._run(query_cts, compare=False, with_pads=True)
         scores = torch.stack([res[k].data.to(self.mesh.root) for k in range(per * n)])
         return scores, res[0].scale, per * n
 
     def _flags(self, query_cts: List[Ciphertext], with_pads: bool) -> Dict[int, Ciphertext]:
-        return self._run(query_cts, lambda view, s: view._compare_many([s])[0], with_pads)
+        return self._run(query_cts, compare=True, with_pads=with_pads)
 
     def membership(self, query_cts: List[Ciphertext]) -> Ciphertext:
         """Each shard's flags of its real groups summed with the others'

@@ -13,7 +13,9 @@ a first call; then runs
 torch.profiler over one membership and one similarity (and with --shards N
 one membership of the sharded scenario over a mesh naming the card N
 times) and reports device kernel time, busy share (kernel time over the
-profiled wall time) and the time and launches of each hand-written kernel.
+profiled wall time) and the time and launches of each hand-written kernel;
+before that, the launches of one membership by kernel and K1's launches by
+row count (``NttPlan.rows_hist``).
 Prints the summary and writes it with the profiler tables to --out.
 """
 
@@ -35,7 +37,7 @@ from ..ops import kernels
 from ..parallel import sharded
 from .io import gen_dataset
 
-OURS = ("ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
+OURS = ("ntt_rows_kernel", "ntt_cols_kernel", "ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
         "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
         "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
         "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel", "psum_mod_kernel")
@@ -89,6 +91,13 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
         timed(r, "index_s", lambda: sender.run_index(qcts))
         say(f"rep {rep} " + json.dumps(r))
     say(f"membership decrypts to {receiver.decrypt_membership(out)}")
+    hist = ctx.plan.rows_hist
+    hist.clear()
+    before = kernels.counts()
+    timed({}, "membership_s", lambda: sender.run_membership(qcts))
+    launched = {k: v - before[k] for k, v in kernels.counts().items() if v > before[k]}
+    say(f"one membership: {sum(launched.values())} kernel launches {json.dumps(launched)}; "
+        f"K1 launches by rows {json.dumps(dict(sorted(hist.items())))}")
 
     profiled = [("membership", lambda: sender.run_membership(qcts)),
                 ("similarity", lambda: sender.compute_similarity(qcts))]

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from image_matching_tpu_torch.ckks import context as tc
+from image_matching_tpu_torch.ckks import poly_eval
 from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_mac_plain,
                                                    seeded_c0_plain, seeded_pre_plain)
 from image_matching_tpu_torch.ckks.params import (SchemeParams, compute_required_depth,
@@ -73,6 +74,82 @@ def test_ntt_kernel_matches_plain(n, limbs, batch):
     inv = _launched("ntt_inv", lambda: plan.inv(a, limbs))
     assert torch.equal(inv, ntt.ntt_inv_plain(a, plan.ipsis[idx], plan.q[idx], plan.ninv[idx]))
     assert torch.equal(plan.inv(fwd, limbs), a)
+
+
+@pytest.mark.parametrize("n", [512, 8192, 32768])
+def test_ntt_kernel_row_counts(n):
+    """K1's two passes at the row counts the main path gives it (1, 2,
+    28, 160 and 448 rows), plain, through a per-batch and a shared
+    permutation, and written in place over its input (the C entry point's
+    out aliasing in), each bit-exact with the plain transforms."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    limbs = (0, 3)
+    for rows in (1, 2, 28, 160, 448):
+        shape = (rows, 1) if rows == 1 else (rows // 2, 2)
+        lim = limbs[: shape[1]]
+        a = _rows(ctx, gen, shape[:1], lim)
+        perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                           for r in range(1, shape[0] + 1)])).to(dev)
+        for perm in (None, perms, perms[:1]):
+            for inverse in (False, True):
+                fn = ctx.plan.inv if inverse else ctx.plan.fwd
+                plain = ctx.plan.inv_plain if inverse else ctx.plan.fwd_plain
+                got = _launched("ntt_inv" if inverse else "ntt_fwd", lambda: fn(a, lim, perm))
+                assert torch.equal(got, plain(ntt.permute_rows(a, perm), lim)), (rows, inverse)
+        for inverse in (False, True):
+            tw, tw_sh = ((ctx.plan.ipsis, ctx.plan.ipsis_sh) if inverse
+                         else (ctx.plan.psis, ctx.plan.psis_sh))
+            x = a.clone()
+            kernels.launch("imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd", x,
+                           kernels.ptr(x), len(lim) * n, 0, 0,
+                           kernels.ptr(ctx.plan.limb_index(lim)), x.numel() // n, len(lim),
+                           ctx.plan.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
+                           kernels.ptr(ctx.plan.q), kernels.ptr(ctx.plan.ninv),
+                           kernels.ptr(ctx.plan.ninv_sh), int(inverse))
+            plain = ctx.plan.inv_plain if inverse else ctx.plan.fwd_plain
+            assert torch.equal(x, plain(a, lim)), (rows, inverse, "in place")
+
+
+def test_batched_compare_on_card_matches_cpu():
+    """The compare circuit over a stack of 3 scores on the card (K9's
+    batched tensor product, K11's batched add_scalar) equals the same
+    stack on the CPU and the circuit run on each score alone."""
+    dev = _device()
+    params = SchemeParams.create(ring_dim=512, mult_depth=10, security="none")
+    cfg = MatchConfig(vector_dim=64, comp_depth=10)
+    noise = _numpy_noise(params)
+    cpu_ctx = CkksContext(params, seed=4, device="cpu", **noise)
+    card_ctx = CkksContext(params, seed=4, device=dev, **noise)
+    rng = np.random.default_rng(8)
+    cts = [cpu_ctx.encrypt(rng.uniform(-1, 1, cpu_ctx.slots), scale=params.scale)
+           for _ in range(3)]
+    want = senders.Sender(cpu_ctx, cfg, 0)._compare_many(cts)
+    on_card = [tc.Ciphertext(c.data.to(dev), c.scale) for c in cts]
+    got = senders.Sender(card_ctx, cfg, 0)._compare_many(on_card)
+    single = [poly_eval.chebyshev_compare(card_ctx, c, 0.44, 10) for c in on_card]
+    for w, g, o in zip(want, got, single):
+        assert torch.equal(w.data, g.data.cpu()) and w.scale == g.scale
+        assert torch.equal(o.data, g.data)
+
+
+def test_per_device_error_propagates_from_a_card_worker():
+    """A worker's error on the card's thread is raised in the caller once
+    the other worker has ended."""
+    dev = _device()
+    done = []
+
+    def work(d):
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.zeros(4, device=d).sum().item()
+            raise RuntimeError("card worker failed")
+        done.append(d)
+
+    with pytest.raises(RuntimeError, match="card worker failed"):
+        sharded.per_device([dev, torch.device("cpu")], work)
+    assert done == [torch.device("cpu")]
 
 
 def test_ct_dot_kernel_matches_plain():
@@ -349,7 +426,9 @@ def test_tensor_and_decrypt_kernels_match_plain(n):
     for l in (ctx.Lq, 5):
         x = _rows(ctx, gen, (2,), range(l))
         y = _rows(ctx, gen, (2,), range(ctx.Lq))
-        for a, b in [(x, y), (y, x), (x, None), (y[:, :l], x)]:
+        xb, yb = _rows(ctx, gen, (3, 2), range(l)), _rows(ctx, gen, (3, 2), range(ctx.Lq))
+        for a, b in [(x, y), (y, x), (x, None), (y[:, :l], x), (xb, yb), (yb[..., :l, :], xb),
+                     (xb, None)]:
             got = _launched("tensor", lambda: ctx._tensor(a, b))
             assert torch.equal(got, tc.tensor_plain(ctx, a, b))
         for data in (y[:, :l], _rows(ctx, gen, (3,), range(l)), _rows(ctx, gen, (4, 3), range(l))):
@@ -428,7 +507,8 @@ def test_modarith_kernels_match_plain(n):
         const = ctx._mont_const(123456789, ctx.q_limbs(l))
         cases = [("add", a, b, None), ("sub", a, b, None), ("neg", a, None, None),
                  ("mul", a, b, None), ("mul", a, plane, None), ("mul", a, const, None),
-                 ("add", a, const, None), ("add", a[0], const, 1), ("add", a[0], b[0, :1], 1)]
+                 ("add", a, const, None), ("add", a[0], const, 1), ("add", a[0], b[0, :1], 1),
+                 ("add", a, const, 1), ("add", a, b[:, :1], 1)]
         for op, x, y, head in cases:
             got = _launched("modarith", lambda: mm.residue_op(op, x, y, m, head=head))
             yp = None if y is None else (y if isinstance(y, tuple) else y.cpu())
@@ -549,6 +629,32 @@ def test_sharded_on_one_card_matches_single(streamed):
     """A mesh naming the card twice: in memory 2 groups on 2 shards,
     streamed 3 groups on 2 shards (one padding group)."""
     _sharded_vs_single([_device()] * 2, streamed, 3 if streamed else 2)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_sharded_worker_error_propagates_over_cards(streamed):
+    """Over real cards a shard's failure on its card's thread comes out of
+    the sharded call."""
+    cards = _needs_cards()[:2]
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(params.slots * 2, 64, seed=3)
+    ctx = CkksContext(params, seed=7, device=cards[0], **_numpy_noise(params))
+    proto = MatchingProtocol.setup(5, db, cfg, ctx=ctx, streamed=streamed)
+    qcts = proto.encrypt_query(query)
+    scen = (sharded.ShardedStreamedScenario if streamed else sharded.ShardedScenario)(
+        proto.sender, sharded.make_mesh(devices=cards))
+
+    def fail(*a, **k):
+        raise RuntimeError("shard failed")
+
+    if streamed:
+        scen.views[cards[1]]._group_compute = fail
+    else:
+        scen.shards[1].compute_similarity = fail
+    with pytest.raises(RuntimeError, match="shard failed"):
+        scen.membership(qcts)
 
 
 @pytest.mark.parametrize("streamed", [False, True])

@@ -248,8 +248,11 @@ def test_carried_store_serves_jax_similarity(spair):
 def test_reserve_holds_the_query():
     """The HERS store's device reserve: only the power-of-two keys, but
     room for the dim-ciphertext query and the sender's stacked copy of it
-    (two groups' worth each) beside the six groups of working set."""
+    (two groups' worth each) beside the six groups of working set and one
+    compare stack's Chebyshev basis (16 scores of deg/2 ciphertexts)."""
     ctx = _tctx("default", 2)
     gbytes = DIM * ctx.Lq * ctx.n * 4
     kbytes = ctx.dnum * 2 * ctx.Ltot * ctx.n * 4
-    assert streaming._reserve_bytes(ctx, _tcfg("default"), 0, 4) == 16 * kbytes + 10 * gbytes
+    basis = 16 * (13 // 2) * 2 * ctx.Lq * ctx.n * 4  # comparison depth 8: degree 13
+    assert streaming._reserve_bytes(ctx, _tcfg("default"), 0, 4) == (
+        16 * kbytes + 10 * gbytes + basis)

@@ -103,3 +103,25 @@ def test_host_transforms_match():
     ninv = pow(512, -1, q)
     np.testing.assert_array_equal(tntt.host_ntt_inv(a, q, tp.ipsis_np[4], ninv),
                                   jntt.host_ntt_inv(a, q, jp.ipsis_np[4], ninv))
+
+
+def test_k1_row_histogram_counts_launches_by_rows(monkeypatch):
+    """NttPlan.rows_hist counts K1 launches by their row count (batch x
+    limbs), filled only where K1 launches (here with the launch itself
+    stubbed out: the CPU has no card); a replica starts its own."""
+    from image_matching_tpu_torch.ops import kernels
+
+    _, tp, _ = _plans(512, 4)
+    launched = []
+    monkeypatch.setattr(kernels, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "launch", lambda *a: launched.append(a[1]))
+    tp.rows_hist.clear()
+    x = torch.zeros((3, 4, 512), dtype=torch.int32)
+    tp._launch(x, (0, 1, 2, 3), False, None)
+    tp._launch(x, (0, 1, 2, 3), True, None)
+    tp._launch(x[:, 3:], (3,), True, None)
+    tp.fwd_plain(x, (0, 1, 2, 3))  # the plain version is not K1
+    assert launched == ["ntt_fwd", "ntt_inv", "ntt_inv"]
+    assert tp.rows_hist == {12: 2, 3: 1}
+    assert tp.replica("cpu").rows_hist == {}
+    tp.rows_hist.clear()

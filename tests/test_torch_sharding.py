@@ -231,3 +231,64 @@ def test_sharded_uneven_groups_padded():
     flags = scen.index(q)
     assert len(flags) == 4 and tp.decrypt_index(flags) == [0]
     _same_cts(tp.index(q), flags[:3])
+
+
+def test_per_device_one_thread_each_and_errors_propagate():
+    """per_device: one device runs on the calling thread; several each get
+    a thread of their own, all running at once (each waits for the others
+    at a barrier), and a worker's exception is raised in the caller after
+    every worker has ended."""
+    import threading
+
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    assert sharded.per_device([cpu, cpu], lambda d: threading.get_ident()) == {
+        cpu: threading.get_ident()}
+    barrier = threading.Barrier(2, timeout=30)
+
+    def meet(dev):
+        barrier.wait()
+        return threading.get_ident()
+
+    windows = {}
+    ids = sharded.per_device([cpu, meta, cpu], meet, windows)
+    assert set(ids) == {cpu, meta} and len(set(ids.values())) == 2
+    assert threading.get_ident() not in ids.values()
+    assert set(windows) == {"cpu", "meta"}
+    assert all(0 <= w["issue_start_s"] <= w["issue_end_s"] <= w["done_s"]
+               for w in windows.values())
+    ended = []
+
+    def fail_on_meta(dev):
+        if dev == meta:
+            raise RuntimeError("worker failed")
+        ended.append(dev)
+        return dev
+
+    with pytest.raises(RuntimeError, match="worker failed"):
+        sharded.per_device([cpu, meta], fail_on_meta)
+    assert ended == [cpu]
+
+
+def test_launch_counts_are_not_lost_under_threads():
+    """The kernels' launch counters are bumped from one thread per card in
+    the sharded scenarios: many threads bumping at a short switch interval
+    lose no count."""
+    import sys
+    import threading
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        kernels.reset_counts()
+        threads = [threading.Thread(target=lambda: [kernels.count("modarith")
+                                                    for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert kernels.counts()["modarith"] == 16 * 2000
+    finally:
+        sys.setswitchinterval(old)
+        kernels.reset_counts()

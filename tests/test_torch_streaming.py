@@ -26,6 +26,7 @@ from image_matching_tpu.utils import io as dio
 from image_matching_tpu.utils import native
 from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
 from image_matching_tpu_torch.ckks.context import seeded_c0_plain, seeded_pre_plain
+from image_matching_tpu_torch.ckks.poly_eval import DEPTH_TO_DEGREE
 from image_matching_tpu_torch.matching import streaming
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
@@ -258,8 +259,10 @@ def test_resident_budget(monkeypatch):
     streaming._promote_resident(store, gbytes + gbytes // 2)
     assert store.resident == [True, False]
     reserve = streaming._reserve_bytes(ctx, TCFG, 14, 0)
-    # 2 x 8 power-of-two keys (256 slots) + 7 baby + 7 giant steps
-    assert reserve == 30 * ctx.dnum * 2 * ctx.Ltot * ctx.n * 4 + 6 * gbytes
+    # 2 x 8 power-of-two keys (256 slots) + 7 baby + 7 giant steps, and one
+    # compare stack's Chebyshev basis: 16 scores of deg/2 ciphertexts
+    basis = 16 * (DEPTH_TO_DEGREE[TCFG.comp_depth] // 2) * 2 * ctx.Lq * ctx.n * 4
+    assert reserve == 30 * ctx.dnum * 2 * ctx.Ltot * ctx.n * 4 + 6 * gbytes + basis
 
 
 def test_engine_choice(monkeypatch):
