@@ -8,43 +8,48 @@ Phases (every one asserts; any failure exits non-zero before the result
 line is printed):
   1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
      print the time;
-  2. run each kernel (NTT fwd/inv, ct_dot, fast base conversion, keyswitch
-     MAC, c1 expansion, both passes of seeded encryption, and the fused
-     operations built on K7-K10: rescale, mod-down, digit decomposition,
-     tensor product, decryption, public-key encryption) on the card at the
-     shapes of the main path and require bit-exact equality with its plain
-     torch version on the same inputs; print both times (CUDA events); K1
+  2. run each kernel (NTT fwd/inv, ct_dot, the seeded contraction
+     ct_dot_seeded, fast base conversion, keyswitch MAC, c1 expansion, both
+     passes of seeded encryption, and the fused operations built on
+     K7-K10: rescale, mod-down, digit decomposition, tensor product,
+     decryption, public-key encryption) on the card at the shapes of the
+     main path and require bit-exact equality with its plain torch version
+     on the same inputs; print both times (CUDA events); ct_dot also at
+     Blind-Match's K = 4 x 128 blocks of 15 limbs, ct_dot_seeded at HERS's
+     shape, with fewer limbs than the group and for a padding group, each
+     also equal to K5's c1 stacked with c0 and contracted by ct_dot; K1
      also at 2, 28, 160 and 448 rows, with and without a per-row Galois
      gather, beside the earlier design's ntt.cu where build/ntt_prev/
-     holds one (utils/ntt_bench.py);
+     holds one (utils/ntt_bench.py); the streamed membership's 64-group
+     contraction through ct_dot_seeded and through a stack filled by K5
+     and a copy, in turns, and K2 beside the earlier design's ct_dot.cu
+     where build/ct_dot_prev/ holds one (utils/dot_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
      index, decrypt; require membership True, the index set equal to the
      plaintext set cosine >= 0.44 (which holds the planted vector 0), and
      decrypted scores within 1e-4 of the plaintext cosine;
-  4. require that every kernel but the seeded ones (K5, K6) was launched
-     during phase 3;
+  4. require that every kernel but the streamed store's (ct_dot_seeded,
+     K6) and K5 was launched during phase 3;
   5. the streamed, seed-compressed HyDia store at 2^20 vectors (64
      groups) with the device-memory budget derived on the card: setup
      (split into keygen, enrollment, rotation keys), membership and index
      (a first call, then three repetitions each), the same decisions and
      score parity over all 2^20 vectors; resident and pinned group counts,
-     peak device memory; the launches of one membership and K1's launches
-     by row count; every kernel launched;
+     peak device memory (and over the queries alone); the launches of one
+     membership and K1's launches by row count; every kernel launched but
+     K5 and ct_dot (the seeded contraction draws c1 in registers);
   6. 2^17 vectors (8 groups) with resident_budget=0, so every group
      crosses PCIe on every query: the same decisions, the per-group copy
      and compute times, and a membership ciphertext bit-equal to the same
      store served all resident;
   7. HERS (approach 4) in memory at 2^16 (4 matrices of 512 feature
-     ciphertexts, a 512-ciphertext query), as phase 3, every kernel but
-     K5/K6 launched;
-  8. the streamed HERS store at 2^20 (64 groups), as phase 5, every
-     kernel launched;
+     ciphertexts, a 512-ciphertext query), as phase 3;
+  8. the streamed HERS store at 2^20 (64 groups), as phase 5;
   9. Baseline (approach 1), GROTE (approach 2) and Blind-Match (approach 3)
      in memory at 2^15 vectors, each at its own depth (13, 18, 12), as
-     phase 3; every kernel but K5/K6 launched (and but K2 for Baseline and
-     GROTE).
+     phase 3 (and but K2 for Baseline and GROTE).
 Sharded (parallel/sharded.py), reusing the protocols above: after phase 3,
 K12 (the modular sum of shard partials) against its plain version at the
 flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows;
@@ -64,7 +69,8 @@ K11 (standalone residue arithmetic) must launch on every path; nothing of
 jax or of the JAX package may be imported.  The last lines are the card's
 name and power limit, one JSON line of per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its 32-bit
-integer operations over 67 T/s), and the JSON result line.
+integer operations over 67 T/s, the float32 rate: Hopper issues integer
+add, xor and shift at a lower one), and the JSON result line.
 """
 
 import gc
@@ -82,12 +88,15 @@ NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
 NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
 DIM = 512
 SEED = 0
-SEEDED_KERNELS = ("expand_c1", "seeded_pre", "seeded_c0")  # the streamed store's
+SEEDED_KERNELS = ("ct_dot_seeded", "seeded_pre", "seeded_c0")  # the streamed store's
 ENCRYPT_KERNELS = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0")  # setup, query encryption
 APPROACH = {1: "Baseline", 2: "GROTE", 3: "Blind-Match", 4: "HERS", 5: "HyDia"}
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM device memory
 INT_OPS_PER_S = 67e12      # 32-bit lanes outside the tensor cores (float32 peak)
 MUL, ADD = 6, 2            # 32-bit operations per modular product / add
+MAD = 2                    # a product added into a 64-bit sum (mad.wide.u32)
+UNIFORM_OPS = 20 * 4 + 4 * 6 + 2 * MUL  # a Threefry draw (20 rounds of add, rotate,
+# xor; key injections) and its two Montgomery products
 T0 = time.perf_counter()
 
 
@@ -139,7 +148,8 @@ def recorder(rows):
     kernel call against its plain version, bit for bit, and time both;
     nbytes and ops are the work of the call (inputs read once, outputs
     written once), for its bound.  The first shape recorded for a kernel
-    is its main path's and gives its row in `rows`."""
+    is its main path's and gives its row in `rows`.  Returns the kernel's
+    ms."""
     def record(name, label, got, want, fn, plain_fn, nbytes, ops):
         assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape, label
         err = int((got.long() - want.long()).abs().max())
@@ -152,6 +162,7 @@ def recorder(rows):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if "ms" not in r:
             r.update(ms=ms, plain_ms=pms, shape=label, bound_ms=bms, bound_by=by)
+        return ms
     return record
 
 
@@ -212,19 +223,17 @@ def check_kernels(ctx, device):
     check_ntt_shapes(plan, rows)
 
     qp = P[:Lq]
-    def ct_dot_work(K, blocks):
-        return ((K * 2 + blocks * K * 2 + blocks * 3) * Lq * n * 4,
-                blocks * Lq * n * 4 * K * (MUL + ADD))
-
     A = rand_residues((32, 2, Lq, n), qp, gen, device)
     B = rand_residues((16, 32, 2, Lq, n), qp, gen, device)
     record("ct_dot", "K=32 x 16 blocks", ct_dot(ctx, A, B), ct_dot_plain(ctx, A, B),
-           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B), *ct_dot_work(32, 16))
+           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B),
+           *ct_dot_work(32, 16, Lq, n))
     A = rand_residues((512, 2, Lq, n), qp, gen, device)
     B = rand_residues((512, 2, Lq, n), qp, gen, device)
     record("ct_dot", "K=512", ct_dot(ctx, A, B), ct_dot_plain(ctx, A, B),
-           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B), *ct_dot_work(512, 1))
+           lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B), *ct_dot_work(512, 1, Lq, n))
     del A, B
+    check_blind_width(device, gen, record)
 
     grp = tuple(ctx.groups[0])                         # 5 limbs
     other = tuple(i for i in ctx.ext_limbs(l) if i not in grp)  # 15 limbs
@@ -259,12 +268,12 @@ def check_kernels(ctx, device):
     # the streamed store's kernels at one DB group: dim 512 ciphertexts
     B, seed, grp = DIM, 1234, 63
     label = f"{B}x{Lq} limbs"
-    threefry = 20 * 4 + 4 * 6  # 20 rounds of add, rotate, xor; key injections
     record("expand_c1", label, ctx.expand_c1(seed, grp, B, Lq),
            uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
            lambda: ctx.expand_c1(seed, grp, B, Lq),
            lambda: uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
-           B * Lq * n * 4, B * Lq * n * (threefry + 2 * MUL))
+           B * Lq * n * 4, B * Lq * n * UNIFORM_OPS)
+    check_seeded_dot(ctx, device, gen, record, rows)
     hi, lo = (torch.from_numpy(a.view(np.int32)).to(device) for a in ctx.split_coeffs(
         np.random.default_rng(5).integers(-(2 ** 40), 2 ** 40, size=(B, n))))
     e = torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).int()
@@ -280,12 +289,107 @@ def check_kernels(ctx, device):
     record("seeded_c0", label, ctx._seeded_c0(xs, seed, grp), want,
            lambda: ctx._seeded_c0(xs, seed, grp),
            lambda: seeded_c0_plain(ctx, x, seed, grp),
-           (2 * B * Lq * n + Lq * n) * 4, B * Lq * n * (threefry + 3 * MUL + ADD))
+           (2 * B * Lq * n + Lq * n) * 4, B * Lq * n * (UNIFORM_OPS + MUL + ADD))
     del x, xs, want, hi, lo, e
     check_fused(ctx, device, gen, record, rows)
     check_residue_ops(ctx, device, gen, record)
     check_grote_width(device, gen, record)
+    check_dot_bench(ctx)
     return rows
+
+
+def ct_dot_work(K, blocks, l, n, LA=None, seeded=False):
+    """(bytes, operations) of a contraction of A [K, 2, LA, n] with `blocks`
+    blocks of K ciphertexts at l limbs: A, B (seeded: c0 alone) and the
+    output moved once; four products added into 64-bit sums per term, one
+    reduction (three Montgomery products, two adds) per output; seeded,
+    each c1 residue's Threefry draw too."""
+    LA = l if LA is None else LA
+    b_words = blocks * K * (1 if seeded else 2) * l * n
+    ops = blocks * l * n * (4 * K * MAD + 3 * (3 * MUL + 2 * ADD))
+    if seeded:
+        ops += blocks * K * l * n * UNIFORM_OPS
+    return (K * 2 * LA * n + b_words + blocks * 3 * l * n) * 4, ops
+
+
+def check_blind_width(device, gen, record):
+    """Phase 2, K2 at Blind-Match's shape: K = 4 (its query's ciphertexts)
+    by 128 blocks (a row chunk of its DB), 15 limbs (depth 12), on a
+    context of Blind-Match's own primes."""
+    from image_matching_tpu_torch.ckks.context import CkksContext
+    from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
+    from image_matching_tpu_torch.matching.config import MatchConfig
+    from image_matching_tpu_torch.matching.senders import ct_dot, ct_dot_plain
+
+    cfg = MatchConfig()
+    ctx = CkksContext(SchemeParams.create(mult_depth=compute_required_depth(3, cfg.comp_depth)),
+                      seed=SEED + 3, device=device)
+    n, l = ctx.n, ctx.Lq
+    assert l == 15, l
+    K = cfg.vector_dim // cfg.chunk_len  # the query's ciphertexts
+    A = rand_residues((K, 2, l, n), ctx.all_primes[:l], gen, device)
+    B = rand_residues((128, K, 2, l, n), ctx.all_primes[:l], gen, device)
+    record("ct_dot", f"K={K} x 128 blocks, {l} limbs (Blind-Match)", ct_dot(ctx, A, B),
+           ct_dot_plain(ctx, A, B), lambda: ct_dot(ctx, A, B), lambda: ct_dot_plain(ctx, A, B),
+           *ct_dot_work(K, 128, l, n))
+    del ctx, A, B
+    torch.cuda.empty_cache()
+
+
+def check_seeded_dot(ctx, device, gen, record, rows):
+    """Phase 2, the seeded contraction (K2's variant that draws K5's c1 in
+    registers) against its plain version, and against K5's c1 stacked with
+    c0 and contracted by K2 (the route it replaces), bit-exact: at HyDia's
+    shape (A [32, 2, 14, N], one group's c0 [512, 14, N] in 16 blocks),
+    HERS's (K = 512), with A at 10 limbs (l < L: the counter still runs
+    over the group's 14), and for a padding group (zero); each timed
+    beside K5's time on one group."""
+    from image_matching_tpu_torch.matching.senders import (ct_dot, ct_dot_seeded,
+                                                           ct_dot_seeded_plain)
+
+    n, L, P = ctx.n, ctx.Lq, ctx.all_primes
+    seed, grp = 2 ** 31 + 5, 2 ** 32 - 3
+    c0 = rand_residues((DIM, L, n), P[:L], gen, device)
+    k5_ms = rows["expand_c1"]["ms"]
+    for label, K, LA in ((f"HyDia K=32 x {DIM // 32} blocks", 32, L), (f"HERS K={DIM}", DIM, L),
+                         (f"HyDia, A at 10 of {L} limbs", 32, 10)):
+        nb = DIM // K
+        A = rand_residues((K, 2, LA, n), P[:LA], gen, device)
+        got = ct_dot_seeded(ctx, A, c0, seed, grp, nb)
+        stacked = torch.stack([c0, ctx.expand_c1(seed, grp, DIM, L)], dim=1)
+        k5_route = ct_dot(ctx, A, stacked.view(nb, K, 2, L, n))
+        del stacked
+        assert torch.equal(got, k5_route), f"ct_dot_seeded [{label}] differs from K5 + K2"
+        ms = record("ct_dot_seeded", label, got, ct_dot_seeded_plain(ctx, A, c0, seed, grp, nb),
+                    lambda: ct_dot_seeded(ctx, A, c0, seed, grp, nb),
+                    lambda: ct_dot_seeded_plain(ctx, A, c0, seed, grp, nb),
+                    *ct_dot_work(K, nb, min(LA, L), n, LA, seeded=True))
+        log(f"ct_dot_seeded [{label}] {ms:.4f} ms beside K5's {k5_ms:.4f} ms on the same "
+            f"group ({ms / k5_ms:.2f} x K5); equal to K5's c1 contracted by K2")
+        del got, k5_route
+    pad = ct_dot_seeded(ctx, A, c0, seed, grp, DIM // 32, valid=False)
+    assert torch.equal(pad, ct_dot_seeded_plain(ctx, A, c0, seed, grp, DIM // 32, valid=False))
+    assert not pad.any(), "a padding group's contraction must be zero"
+    log("ct_dot_seeded: a padding group's contraction is zero and equal to its plain version")
+    del A, c0, pad
+
+
+def check_dot_bench(ctx):
+    """Phase 2, utils/dot_bench.py: the streamed membership's 64-group
+    contraction, seeded and stacked, in turns; with build/ct_dot_prev/
+    ct_dot.cu (an earlier design, its own modmath.cuh beside it), K2
+    beside that kernel and the stacked route through it."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import dot_bench
+
+    src = Path(__file__).resolve().parent / "build" / "ct_dot_prev" / "ct_dot.cu"
+    baseline = dot_bench.build_baseline(src) if src.exists() else None
+    if baseline is None:
+        log(f"dot_bench: no earlier ct_dot.cu at {src}: the routes of this tree alone")
+    for r in dot_bench.measure(ctx, baseline):
+        log("dot_bench " + json.dumps(r))
+    free_device()
 
 
 def check_ntt_shapes(plan, rows):
@@ -524,7 +628,10 @@ def streamed_phase(approach, cfg, device, smi):
     proto = setup_split(times, lambda: MatchingProtocol.setup(
         approach, db, cfg, seed=SEED, device=device, streamed=True))
     qcts = timed(times, "encrypt_query_s", lambda: proto.encrypt_query(query))
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     mem, idx = queries(proto, qcts, times)
+    query_peak = torch.cuda.max_memory_allocated()
     one_membership_launches(name, proto, qcts)
     member = proto.decrypt_membership(mem)
     found = sorted(proto.decrypt_index(idx))
@@ -533,7 +640,8 @@ def streamed_phase(approach, cfg, device, smi):
     times.update(groups=store.num_groups, resident_groups=store.resident_count(),
                  pinned_groups=store.host_count(),
                  store_gb=store.num_groups * store.group_bytes() / 1e9,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                 peak_mem_gib=max(setup_peak, query_peak) / 2 ** 30,
+                 query_peak_mem_gib=query_peak / 2 ** 30)
     log(f"{name} on {smi}: " + json.dumps(times) + " launches " + json.dumps(launches))
 
     sims, expect = expected_matches(query, db, cfg.match_threshold)
@@ -819,8 +927,11 @@ def main():
         f"{params.num_special} special, dnum {params.dnum}")
     rows = check_kernels(CkksContext(params, seed=SEED + 1, device=device), device)
     free_device()
-    unsharded = [k for k in kernels.KERNELS if k != "psum_mod"]  # K12: sharded paths only
+    # K12: sharded paths only; K5: its c1 is drawn inside ct_dot_seeded on
+    # every path, and checked in phase 2 alone
+    unsharded = [k for k in kernels.KERNELS if k not in ("psum_mod", "expand_c1")]
     in_memory = [k for k in unsharded if k not in SEEDED_KERNELS]
+    streamed = [k for k in unsharded if k != "ct_dot"]  # the seeded variant contracts
     slot_packing = [k for k in in_memory if k != "ct_dot"]
     launches = {}
 
@@ -838,13 +949,13 @@ def main():
     free_device()
     # phase 5: streamed at 2^20, then sharded; 6: forced pinned, sharded inside
     launches["hydia_streamed"], res = streamed_phase(5, cfg, device, smi)
-    require_launched(launches["hydia_streamed"], unsharded, "HyDia streamed 2^20")
+    require_launched(launches["hydia_streamed"], streamed, "HyDia streamed 2^20")
     sharded("hydia_streamed", "HyDia streamed 2^20", True, res)
     del res
     free_device()
     launches["hydia_pinned"], pinned_sharded = pinned_phase(cfg, device, smi)
     free_device()
-    require_launched(launches["hydia_pinned"], unsharded, "HyDia forced-pinned 2^17")
+    require_launched(launches["hydia_pinned"], streamed, "HyDia forced-pinned 2^17")
     for label, counts in pinned_sharded.items():
         launches[f"hydia_pinned_sharded {label}"] = counts
     # phases 7-8: HERS in memory at 2^16 (then sharded) and streamed at 2^20
@@ -855,7 +966,7 @@ def main():
     free_device()
     launches["hers_streamed"] = streamed_phase(4, cfg, device, smi)[0]  # drops its 60 GB store
     free_device()
-    require_launched(launches["hers_streamed"], unsharded, "HERS streamed 2^20")
+    require_launched(launches["hers_streamed"], streamed, "HERS streamed 2^20")
     # phase 9: Baseline, GROTE and Blind-Match in memory at 2^15
     for approach, key, need in [(1, "baseline_in_memory", slot_packing),
                                 (2, "grote_in_memory", slot_packing),
@@ -873,6 +984,8 @@ def main():
         "ntt_fwd": ("ntt.cu", "image_matching_tpu/ops/ntt.py:231"),
         "ntt_inv": ("ntt.cu", "image_matching_tpu/ops/ntt.py:260"),
         "ct_dot": ("ct_dot.cu", "image_matching_tpu/matching/senders.py:53"),
+        # with the expand_c1 before it (image_matching_tpu/ops/prng.py:51)
+        "ct_dot_seeded": ("ct_dot.cu", "image_matching_tpu/matching/senders.py:53"),
         "fbc": ("basis_convert.cu", f"{ctx_py}:837"),
         "ks_mac": ("keyswitch.cu", f"{ctx_py}:940"),
         "expand_c1": ("prng.cu", "image_matching_tpu/ops/prng.py:51"),

@@ -37,19 +37,36 @@ __device__ __forceinline__ uint32_t mod_sub(uint32_t a, uint32_t b, uint32_t q) 
   return a >= b ? a - b : a + (q - b);
 }
 
-// 128-bit accumulator (hi:lo) for sums of up to 2^66 products < 2^62.
-struct acc128 {
-  uint64_t lo, hi;
+// Sum of products of residues below 2^31 (each below 2^62): a 64-bit lo
+// word and a 32-bit carry count hi, value hi * 2^64 + lo.  Products are
+// first summed four at a time into a 64-bit partial (4 * 2^62 = 2^64: no
+// overflow; one mad.wide.u32 each), and each partial is folded in with
+// one 64-bit add and a carry: exact for up to 2^32 partials.
+struct acc96 {
+  uint64_t lo;
+  uint32_t hi;
 };
 
-__device__ __forceinline__ void acc_add(acc128 &s, uint64_t p) {
-  s.lo += p;
-  s.hi += (s.lo < p);
+__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b,
+                                             uint64_t c) {
+  return (uint64_t)a * b + c;
 }
 
-// (hi * 2^64 + lo) mod q.
-__device__ __forceinline__ uint32_t acc_mod(const acc128 &s, uint32_t q) {
-  uint64_t q64 = q;
-  uint64_t r64 = (0xFFFFFFFFFFFFFFFFull % q64 + 1) % q64;  // 2^64 mod q
-  return (uint32_t)(((s.hi % q64) * r64 + s.lo % q64) % q64);
+__device__ __forceinline__ void acc_fold(acc96 &s, uint64_t t) {
+  s.lo += t;
+  s.hi += (s.lo < t);
+}
+
+// (hi * 2^64 + lo) * R^{-1} mod q without a 64-bit division:
+//   = hi * R + lo_hi + lo_lo * R^{-1}
+//   = mont(hi, R^2) + mont(lo_hi, R) + mont(lo_lo, 1)  (mod q),
+// with r1 = R mod q and r2 = R^2 mod q = 2^64 mod q; each Montgomery
+// product takes a factor below 2^32 and one below q, as mont_mul needs.
+__device__ __forceinline__ uint32_t acc_redc(const acc96 &s, uint32_t q,
+                                             uint32_t qneg, uint32_t r1,
+                                             uint32_t r2) {
+  const uint32_t a = mont_mul(s.hi, r2, q, qneg);
+  const uint32_t b = mont_mul((uint32_t)(s.lo >> 32), r1, q, qneg);
+  const uint32_t c = mont_mul((uint32_t)s.lo, 1u, q, qneg);
+  return mod_add(mod_add(a, b, q), c, q);
 }

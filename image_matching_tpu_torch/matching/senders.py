@@ -4,8 +4,10 @@ Baseline (1), GROTE (2), Blind-Match (3), HERS (4) and HyDia (5).
 
 ``ct_dot``, the diagonal contraction, launches kernel K2
 (``csrc/ct_dot.cu``) for CUDA tensors and runs ``ct_dot_plain`` for CPU
-tensors; the modular sums of many rows launch K11's row sum
-(``mm.row_sum``).  The JAX module's jit runners and segments have no
+tensors; ``ct_dot_seeded``, the streamed senders' contraction of a
+seed-compressed group, launches K2's seeded variant (c1 drawn in
+registers) or runs ``ct_dot_seeded_plain``; the modular sums of many rows
+launch K11's row sum (``mm.row_sum``).  The JAX module's jit runners and segments have no
 counterpart (PyTorch runs eagerly), and its ``vmap``/``lax.map`` over
 score ciphertexts, DB batches and groups become Python loops or a leading
 batch axis in chunks of ``CkksContext.ROW_CHUNK`` (of ``compare_chunk()``
@@ -27,6 +29,7 @@ from ..ckks import poly_eval
 from ..ckks.context import CkksContext, Ciphertext
 from ..ops import kernels
 from ..ops import modmath as mm
+from ..ops import prng
 from . import packing
 from .config import MatchConfig
 from .enrollers import BaseDB, BlindDB, DiagDB, HersDB
@@ -69,12 +72,67 @@ def ct_dot(ctx: CkksContext, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if KB != K or A.shape[1] != 2 or Bb.shape[2] != 2 or n != ctx.n:
         raise ValueError(f"ct_dot: shapes {tuple(A.shape)} and {tuple(B.shape)}")
     l = min(LA, LB)
+    _check_grid("ct_dot", l)
     out = torch.empty((nb, 3, l, n), dtype=torch.int32, device=A.device)
-    kernels.check_cuda("ct_dot", A, Bb, ctx.q32, ctx.qneg32)
+    kernels.check_cuda("ct_dot", A, Bb, ctx.q32, ctx.qneg32, ctx.r1_32, ctx.r2_32)
     kernels.launch("imtpu_ct_dot", "ct_dot", out, kernels.ptr(A),
                    kernels.ptr(Bb), K, nb, l, n, LA, LB, kernels.ptr(ctx.q32),
-                   kernels.ptr(ctx.qneg32))
+                   kernels.ptr(ctx.qneg32), kernels.ptr(ctx.r1_32), kernels.ptr(ctx.r2_32))
     return out if blocked else out[0]
+
+
+def _check_grid(name: str, l: int):
+    if l > 65535:
+        raise ValueError(f"{name}: {l} limbs exceed the kernel's grid (65535)")
+
+
+def ct_dot_seeded_plain(ctx: CkksContext, A: torch.Tensor, c0: torch.Tensor, seed: int,
+                        group: int, blocks: int, valid: bool = True) -> torch.Tensor:
+    """Plain version of ``ct_dot_seeded``: ``ct_dot_plain`` over the stack of
+    c0 and its c1 (``uniform_residues_plain``, zero with c0 for a padding
+    group)."""
+    BK, L, n = c0.shape
+    if valid:
+        c1 = prng.uniform_residues_plain(seed, group, (BK, L, n), ctx.q32, ctx.r1_32)
+    else:
+        c0 = c1 = torch.zeros((BK, L, n), dtype=torch.int32, device=c0.device)
+    B = torch.stack([c0, c1], dim=1).reshape(blocks, BK // blocks, 2, L, n)
+    return ct_dot_plain(ctx, A, B)
+
+
+def ct_dot_seeded(ctx: CkksContext, A: torch.Tensor, c0: torch.Tensor, seed: int, group: int,
+                  blocks: int, valid: bool = True) -> torch.Tensor:
+    """The contraction of A [K, 2, la, N] with the nb = ``blocks`` blocks of
+    K seed-compressed ciphertexts of one group, c0 int32 [nb*K, L, N]
+    (``store.groups[g]`` where it lies, a staging buffer or a card-to-card
+    copy) and c1 = ``ctx.expand_c1(seed, group, nb*K, L)``: what
+    ``ct_dot(ctx, A, stack([c0, c1], 1).reshape(nb, K, 2, L, N))``
+    computes, [nb, 3, l, N] with l = min(la, L).  The c1 counter runs over
+    the group's L limbs whatever l is.  ``valid=False`` is a padding group,
+    an exact encryption of 0 (c0 and c1 zero: the JAX module's ``c1 *
+    valid``): c0 is not read and the result is zero.
+
+    K2's seeded variant for CUDA tensors (c1 drawn in registers with K5's
+    Threefry, never written), ``ct_dot_seeded_plain`` for CPU tensors."""
+    BK, L, n = c0.shape
+    K, two, LA, nA = A.shape
+    if two != 2 or nA != n or n != ctx.n or K * blocks != BK:
+        raise ValueError(f"ct_dot_seeded: A {tuple(A.shape)} against c0 {tuple(c0.shape)} "
+                         f"in {blocks} blocks")
+    if not A.is_cuda:
+        return ct_dot_seeded_plain(ctx, A, c0, seed, group, blocks, valid)
+    l = min(LA, L)
+    if not valid:
+        return torch.zeros((blocks, 3, l, n), dtype=torch.int32, device=A.device)
+    _check_grid("ct_dot_seeded", l)
+    A = A.contiguous()
+    out = torch.empty((blocks, 3, l, n), dtype=torch.int32, device=A.device)
+    kernels.check_cuda("ct_dot_seeded", A, c0, ctx.q32, ctx.qneg32, ctx.r1_32, ctx.r2_32)
+    kernels.launch("imtpu_ct_dot_seeded", "ct_dot_seeded", out, kernels.ptr(A),
+                   kernels.ptr(c0), K, blocks, l, n, LA, L, kernels.ptr(ctx.q32),
+                   kernels.ptr(ctx.qneg32), kernels.ptr(ctx.r1_32), kernels.ptr(ctx.r2_32),
+                   seed & prng.M32, group & prng.M32)
+    return out
 
 
 def compare_chunk() -> int:
@@ -192,17 +250,15 @@ def diag_query_stack(ctx: CkksContext, qct: Ciphertext, n1: int) -> torch.Tensor
     return torch.cat([qct.data[None], rot], dim=0)
 
 
-def diag_group_score(ctx: CkksContext, Q: torch.Tensor, dbd: torch.Tensor, n1: int,
+def diag_group_score(ctx: CkksContext, t3: torch.Tensor, n1: int,
                      prod_scale: float) -> Ciphertext:
-    """Similarity score ciphertext of one diagonal group dbd [dim, 2, l, N]
-    against the query stack Q: diagonal matrix-vector product, relinearize,
-    giant rotations (BSGS), rescale."""
-    n2 = dbd.shape[0] // n1
+    """Similarity score ciphertext of one diagonal group from its blocked
+    contraction with the query stack, t3 [n2, 3, l, N] (``ct_dot`` or
+    ``ct_dot_seeded`` in n2 = dim / n1 blocks): relinearize, giant
+    rotations (BSGS), rescale."""
+    n2 = t3.shape[0]
     if n2 == 1:
-        t3 = ct_dot(ctx, Q, dbd)
-        return ctx.rescale_score(ctx.relinearize(Ciphertext(t3, prod_scale)))
-    # all inner sums: one blocked contraction + batched relin
-    t3 = ct_dot(ctx, Q, dbd.reshape(n2, n1, *dbd.shape[1:]))
+        return ctx.rescale_score(ctx.relinearize(Ciphertext(t3[0], prod_scale)))
     inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
     # giant rotations: one batched keyswitch over stacked rows
     rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)], prod_scale)
@@ -229,8 +285,12 @@ class DiagonalSender(Sender):
         n1 = self.db.n1 if self.db.bsgs else self.cfg.vector_dim
         Q = diag_query_stack(self.ctx, qct, n1)
         prod_scale = qct.scale * self.db.scale
-        return [diag_group_score(self.ctx, Q, dbd, n1, prod_scale)
-                for dbd in self.db.data]  # [dim, 2, l, N] per group
+        scores = []
+        for dbd in self.db.data:  # [dim, 2, l, N] per group
+            # all inner sums: one contraction in dim / n1 blocks
+            t3 = ct_dot(self.ctx, Q, dbd.reshape(-1, n1, *dbd.shape[1:]))
+            scores.append(diag_group_score(self.ctx, t3, n1, prod_scale))
+        return scores
 
 
 def generate_query_helper(ctx: CkksContext, cfg: MatchConfig, query_ct: Ciphertext,

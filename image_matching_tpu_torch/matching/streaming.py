@@ -3,22 +3,24 @@ of the DiagStore and HersStore paths of
 image_matching_tpu/matching/streaming.py).
 
 Enrollment keeps only c0 of each DB ciphertext (seeded symmetric
-encryption, kernel K6); c1 is regenerated from (seed, group) by kernel K5
-whenever a group is used.  Each group of ``dim`` ciphertexts (``slots``
-vectors) lives in one of two tiers, chosen at enrollment against a device
-memory budget: resident on the context's device, or in host memory
-(page-locked when the device is CUDA).  At production parameters a group is
-0.94 GB of c0, so 2^20 vectors are 64 groups, 60.1 GB: on an 80 GB H100 the
-whole store stays resident beside the keys.
+encryption, kernel K6); c1 is regenerated from (seed, group) whenever a
+group is used, inside the contraction (``senders.ct_dot_seeded``: K2's
+seeded variant draws K5's Threefry stream in registers).  Each group of
+``dim`` ciphertexts (``slots`` vectors) lives in one of two tiers, chosen
+at enrollment against a device memory budget: resident on the context's
+device, or in host memory (page-locked when the device is CUDA).  At
+production parameters a group is 0.94 GB of c0, so 2^20 vectors are 64
+groups, 60.1 GB: on an 80 GB H100 the whole store stays resident beside
+the keys.
 
 Both layouts hold ``dim`` ciphertexts per group of ``slots`` vectors: HyDia
 the generalized diagonals, HERS one ciphertext per feature.  Per query the
-sender takes the groups one at a time: c0 is copied into one reused
-[dim, 2, L, N] stack and K5 writes c1 into its other half.
-Host-tier groups are copied to the device one group ahead, on a side CUDA
-stream, into two reused staging buffers, with CUDA events ordering each
-copy after the previous use of its buffer and each use after its copy.
-``_group_stacks`` also serves the sharded scenario
+sender takes the groups one at a time and contracts each group's c0 where
+it lies (``_stream_groups``): a resident group in place, a host-tier group
+in one of two reused staging buffers, to which it is copied one group
+ahead on a side CUDA stream, with CUDA events ordering each copy after the
+previous contraction of its buffer and each contraction after its copy.
+``_stream_groups`` also serves the sharded scenario
 (``parallel/sharded.py``): any ordered list of group ids, onto any device
 (a group resident on another card is copied card to card), where an id
 past the store is a padding group, an exact encryption of 0 (zero c0 and
@@ -31,6 +33,7 @@ tunnel's stall watchdog in bench.py.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -115,9 +118,9 @@ def _reserve_bytes(ctx: CkksContext, cfg: MatchConfig, rotations: int, query_gro
     rotation keys setup generates after enrollment (the power-of-two keys
     plus the sender's ``rotations``), ``query_groups`` groups' worth of
     query ciphertexts held across the query, six groups' worth of working
-    set (the sender's [dim, 2, L, N] stack, two prefetch staging buffers,
-    and two groups of headroom for enrollment's and the query encryption's
-    transients), and one compare stack's Chebyshev basis."""
+    set (two prefetch staging buffers and four groups of headroom for
+    enrollment's and the query encryption's transients), and one compare
+    stack's Chebyshev basis."""
     keys = 2 * int(math.log2(ctx.slots)) + rotations
     return (keys * _key_bytes(ctx) + (6 + query_groups) * _group_bytes(ctx, cfg)
             + _compare_basis_bytes(ctx, cfg))
@@ -282,8 +285,9 @@ def _enroll_pinned(ctx: CkksContext, store: SeededStore, vals_fn, rows, num_grou
 class _Prefetch:
     """Copies the host-tier groups among ``ids`` to a CUDA device one group
     ahead of use, in the order of ``ids``, on a side stream, into two
-    reused staging buffers.  CUDA events order each copy after the
-    previous use of its buffer, and each use after its copy."""
+    reused staging buffers, which the consumer's contraction reads.  CUDA
+    events order each copy after the previous contraction of its buffer,
+    and each contraction after its copy."""
 
     def __init__(self, store: SeededStore, ids: List[int], device: torch.device):
         self.store, self.ids = store, ids
@@ -297,6 +301,7 @@ class _Prefetch:
             b.record_stream(self.stream)
         self.copied = [torch.cuda.Event() for _ in range(2)]
         self.used = [torch.cuda.Event() for _ in range(2)]
+        self.released = [-1, -1]  # the index each buffer was last released for
         self.start_copy(0)
 
     def staged(self, g: int) -> bool:
@@ -312,30 +317,46 @@ class _Prefetch:
             self.bufs[slot].copy_(self.store.groups[self.ids[i]], non_blocking=True)
             self.copied[slot].record(self.stream)
 
-    def copy_group(self, i: int, dst: torch.Tensor):
-        """Copy c0 of group ids[i] (host tier, its copy started) into dst
-        on the current stream."""
+    def buffer(self, i: int) -> torch.Tensor:
+        """The staging buffer of ids[i] (host tier, its copy started), with
+        the current stream waiting for the copy."""
         slot = i % 2
-        cur = torch.cuda.current_stream(dst.device)
-        cur.wait_event(self.copied[slot])
-        dst.copy_(self.bufs[slot])
-        self.used[slot].record(cur)
+        torch.cuda.current_stream(self.bufs[slot].device).wait_event(self.copied[slot])
+        return self.bufs[slot]
+
+    def release(self, i: int):
+        """Mark the buffer of ids[i] free once the work now queued on the
+        current stream (the consumer's contraction of it) has run; a
+        second call for the same i does nothing."""
+        slot = i % 2
+        if self.released[slot] != i:
+            self.used[slot].record(torch.cuda.current_stream(self.bufs[slot].device))
+            self.released[slot] = i
 
 
-def _group_stacks(store: SeededStore, ctx: CkksContext,
-                  ids: Optional[Sequence[int]] = None) -> Iterator[Tuple[int, torch.Tensor]]:
-    """Yield (g, stack) for every group id of ``ids`` (default: every
-    group in order), stack int32 [dim, 2, L, N] on ``ctx``'s device (the
-    store's context or a replica of it) holding c0 of group g and its c1
-    (K5 on CUDA, from ``ctx``).  An id past the store yields a zeroed stack, an
-    exact encryption of 0, with no K5 launch.  A group resident on another
-    device is copied card to card; host-tier groups come through the
-    prefetch.  The stack is one buffer reused for every id: a consumer
-    enqueues all its work on it before it asks for the next group (work on
-    the current stream is ordered; the CPU runs it before returning)."""
+def _no_release():
+    pass
+
+
+def _stream_groups(store: SeededStore, ctx: CkksContext, ids: Optional[Sequence[int]] = None
+                   ) -> Iterator[Tuple[int, torch.Tensor, bool, Callable[[], None]]]:
+    """Yield (g, c0, valid, release) for every group id of ``ids``
+    (default: every group in order): c0 int32 [dim, L, N] of group g on
+    ``ctx``'s device (the store's context or a replica of it), to be
+    contracted with its c1 from the store's seed
+    (``senders.ct_dot_seeded``).  A group resident on ``ctx``'s device is
+    yielded in place, one resident on another device is copied card to
+    card, host-tier groups come through the prefetch's staging buffers.
+    An id past the store is a padding group: valid is False and c0 a zero
+    view that holds no memory.  The consumer calls ``release()`` once its
+    contraction of c0 is queued on the current stream (work there is
+    ordered; the CPU runs it before returning): from then on a staging
+    buffer may take the next copy, while the rest of the group's work
+    and a chunk's compare run.  A consumer that does not call it
+    releases the buffer when it asks for the next group."""
     ids = list(range(store.num_groups)) if ids is None else list(ids)
     dim, L, n = store.groups[0].shape
-    stack = torch.empty((dim, 2, L, n), dtype=torch.int32, device=ctx.device)
+    pad = torch.zeros((), dtype=torch.int32, device=ctx.device).expand(dim, L, n)
     prefetch = None
     if ctx.device.type == "cuda" and any(
             g < store.num_groups and not store.resident[g] for g in ids):
@@ -344,20 +365,19 @@ def _group_stacks(store: SeededStore, ctx: CkksContext,
         if prefetch is not None:
             prefetch.start_copy(i + 1)  # one id ahead
         if g >= store.num_groups:
-            stack.zero_()
+            yield g, pad, False, _no_release
+        elif prefetch is not None and prefetch.staged(g):
+            yield g, prefetch.buffer(i), True, functools.partial(prefetch.release, i)
+            prefetch.release(i)
         else:
-            if prefetch is not None and prefetch.staged(g):
-                prefetch.copy_group(i, stack[:, 0])
-            else:
-                stack[:, 0].copy_(store.groups[g])
-            ctx.expand_c1(store.seed, g, dim, L, out=stack[:, 1])
-        yield g, stack
+            yield g, store.groups[g].to(ctx.device), True, _no_release
 
 
 class _StreamedSender(senders.Sender):
     """A sender over a SeededStore: the groups streamed one at a time
-    through ``_group_stacks`` (prefetch, K5 c1 into the reused stack), and
-    the compare circuit run over each full chunk of ``compare_chunk()``
+    through ``_stream_groups`` (c0 where it lies or prefetched, its c1
+    drawn inside the contraction), and the compare circuit run over each
+    full chunk of ``compare_chunk()``
     scores as soon as the chunk exists (the remainder at the end), as the
     JAX package's streaming loop dispatches it; the next host-tier group's
     copy is issued before the chunk's compare, so the two overlap.
@@ -370,15 +390,18 @@ class _StreamedSender(senders.Sender):
     def _query_stack(self, query: List[Ciphertext]):
         raise NotImplementedError
 
-    def _group_compute(self, Q, dbd: torch.Tensor) -> Ciphertext:
+    def _group_compute(self, Q, c0: torch.Tensor, g: int, valid: bool = True,
+                       release: Callable[[], None] = _no_release) -> Ciphertext:
+        """Score of group g; ``release()`` right after c0's contraction is
+        queued (``_stream_groups``)."""
         raise NotImplementedError
 
     def _similarity_stream(self, query: List[Ciphertext]) -> Iterator[Ciphertext]:
         """Score ciphertext of each group, in order, computed as the
         stream reaches it."""
         Q = self._query_stack(query)
-        for _g, dbd in _group_stacks(self.store, self.ctx):
-            yield self._group_compute(Q, dbd)
+        for g, c0, valid, release in _stream_groups(self.store, self.ctx):
+            yield self._group_compute(Q, c0, g, valid, release)
 
     def _stream_and_compare(self, query: List[Ciphertext]) -> List[Ciphertext]:
         return [f for _, f in compare_in_chunks(self, enumerate(self._similarity_stream(query)))]
@@ -429,12 +452,17 @@ class StreamedDiagonalSender(_StreamedSender):
         """All baby rotations of the query: [n1, 2, l, N]."""
         return senders.diag_query_stack(self.ctx, query[0], self._n1())
 
-    def _group_compute(self, Q: torch.Tensor, dbd: torch.Tensor) -> Ciphertext:
-        """Similarity of one streamed group (its [dim, 2, L, N] stack with
-        c1 expanded): diagonal BSGS matvec against the query rotations,
-        relinearize, rescale."""
-        return senders.diag_group_score(self.ctx, Q, dbd, self._n1(),
-                                        self.ctx.fresh_scale * self.store.scale)
+    def _group_compute(self, Q: torch.Tensor, c0: torch.Tensor, g: int,
+                       valid: bool = True,
+                       release: Callable[[], None] = _no_release) -> Ciphertext:
+        """Similarity of streamed group g (c0 [dim, L, N], c1 from the
+        seed): diagonal BSGS matvec against the query rotations (one seeded
+        contraction in dim / n1 blocks), relinearize, rescale."""
+        n1 = self._n1()
+        t3 = senders.ct_dot_seeded(self.ctx, Q, c0, self.store.seed, g, c0.shape[0] // n1,
+                                   valid)
+        release()
+        return senders.diag_group_score(self.ctx, t3, n1, self.ctx.fresh_scale * self.store.scale)
 
 
 class StreamedHersSender(_StreamedSender):
@@ -442,9 +470,10 @@ class StreamedHersSender(_StreamedSender):
     (reference src/sender/sender_hers.cpp) on the streamed groups.  The
     dim-ciphertext query is stacked once, as given, and stays on the device
     across the groups.  As the JAX package's streamed sender, it always
-    runs one contraction (K2), relinearization and rescale per group, at
-    the fresh product scale, whatever ``faithful_hers`` and
-    ``hers_alt_query`` say (the in-memory ``HersSender`` honours both)."""
+    runs one contraction (K2's seeded variant), relinearization and
+    rescale per group, at the fresh product scale, whatever
+    ``faithful_hers`` and ``hers_alt_query`` say (the in-memory
+    ``HersSender`` honours both)."""
 
     def _query_stack(self, query: List[Ciphertext]) -> torch.Tensor:
         if len(query) != self.cfg.vector_dim:
@@ -454,7 +483,10 @@ class StreamedHersSender(_StreamedSender):
                 "alt query's single ciphertext either)")
         return torch.stack([c.data for c in query])
 
-    def _group_compute(self, Q: torch.Tensor, dbd: torch.Tensor) -> Ciphertext:
-        t3 = senders.ct_dot(self.ctx, Q, dbd)
+    def _group_compute(self, Q: torch.Tensor, c0: torch.Tensor, g: int,
+                       valid: bool = True,
+                       release: Callable[[], None] = _no_release) -> Ciphertext:
+        t3 = senders.ct_dot_seeded(self.ctx, Q, c0, self.store.seed, g, 1, valid)[0]
+        release()
         return self.ctx.rescale_score(self.ctx.relinearize(
             Ciphertext(t3, self.ctx.fresh_scale * self.store.scale)))

@@ -39,7 +39,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # pointer (c_void_p), "i" an int64_t.
 _ENTRIES = {
     "imtpu_ntt": "ppipipiiipppppi",
-    "imtpu_ct_dot": "pppiiiiiipp",
+    "imtpu_ct_dot": "pppiiiiiipppp",
+    "imtpu_ct_dot_seeded": "pppiiiiiippppii",
     "imtpu_fbc": "pppppiiii",
     "imtpu_ks_mac": "ppippiiiiiiiipp",
     "imtpu_expand_c1": "pppppiiiiii",
@@ -58,15 +59,16 @@ _ENTRIES = {
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
-# launch counters: one per kernel, the NTT counted per direction and the
-# two-pass kernels (K6 seeded encryption, K7 division by a modulus, K9
-# tensor product / decrypt MAC, K10 public-key encryption, K11 standalone
-# residue arithmetic: elementwise / row sum) per pass; K12 the modular sum
-# of shard partials
-KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "fbc", "ks_mac", "expand_c1",
-           "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale", "decompose",
-           "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith", "mod_sum",
-           "psum_mod")
+# launch counters: one per kernel, the NTT counted per direction, K2's
+# seeded variant (ct_dot_seeded: the contraction with K5's c1 drawn in
+# registers) apart from K2, and the two-pass kernels (K6 seeded
+# encryption, K7 division by a modulus, K9 tensor product / decrypt MAC,
+# K10 public-key encryption, K11 standalone residue arithmetic:
+# elementwise / row sum) per pass; K12 the modular sum of shard partials
+KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "ct_dot_seeded", "fbc", "ks_mac",
+           "expand_c1", "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale",
+           "decompose", "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith",
+           "mod_sum", "psum_mod")
 _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost

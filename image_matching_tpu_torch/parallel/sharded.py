@@ -319,12 +319,12 @@ class ShardedStreamedScenario:
     """A streamed sender's store (``matching/streaming.py``) served over a
     mesh: shard d owns group ids [d*per, (d+1)*per), per = ceil(G / n),
     and ids past the store are padding groups, exact encryptions of 0
-    (zero c0 and c1, no K5 launch).  Each distinct device has one reused
-    [dim, 2, L, N] stack and one prefetcher (``streaming._group_stacks``),
-    so shards that share a card run one after another on it; each device
-    runs its ids from its own issuing thread.  A group already on a
-    shard's device is used in place, one resident on another card is
-    copied card to card, a host-tier group is prefetched.  The compare
+    (zero c0 and c1, no contraction launched).  Each distinct device has
+    one prefetcher (``streaming._stream_groups``), so shards that share a
+    card run one after another on it; each device runs its ids from its
+    own issuing thread.  A group already on a shard's device is used in
+    place, one resident on another card is copied card to card, a
+    host-tier group is prefetched.  The compare
     circuit runs on each device over a stack of ``compare_chunk()`` scores
     as soon as the stack exists, the remainder at the end.
 
@@ -359,8 +359,9 @@ class ShardedStreamedScenario:
         def run(dev):
             view = self.views[dev]
             Q = view._query_stack(_moved(query_cts, dev))
-            scores = ((k, view._group_compute(Q, stack)) for k, stack in
-                      streaming._group_stacks(self.sender.store, self.ctxs[dev], ids[dev]))
+            scores = ((k, view._group_compute(Q, c0, k, valid, release))
+                      for k, c0, valid, release in
+                      streaming._stream_groups(self.sender.store, self.ctxs[dev], ids[dev]))
             return streaming.compare_in_chunks(view, scores) if compare else list(scores)
 
         self.windows: Dict[str, Dict[str, float]] = {}

@@ -37,7 +37,8 @@ from ..ops import kernels
 from ..parallel import sharded
 from .io import gen_dataset
 
-OURS = ("ntt_rows_kernel", "ntt_cols_kernel", "ntt_kernel", "ct_dot_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
+OURS = ("ntt_rows_kernel", "ntt_cols_kernel", "ntt_kernel", "ct_dot_kernel",
+        "ct_dot_seeded_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
         "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
         "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
         "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel", "psum_mod_kernel")

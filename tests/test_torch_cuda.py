@@ -36,8 +36,13 @@ from image_matching_tpu_torch.utils import io as dio
 pytestmark = pytest.mark.cuda
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
-# every kernel but K12, which only a sharded membership launches
-UNSHARDED = tuple(k for k in kernels.KERNELS if k != "psum_mod")
+# every kernel but K12, which only a sharded membership launches, and K5,
+# whose c1 the streamed senders draw inside the seeded contraction
+UNSHARDED = tuple(k for k in kernels.KERNELS if k not in ("psum_mod", "expand_c1"))
+# the streamed store's path: the seeded contraction in place of K2
+STREAMED = tuple(k for k in UNSHARDED if k != "ct_dot")
+# the in-memory paths: neither the seeded contraction nor seeded encryption
+IN_MEMORY = tuple(k for k in UNSHARDED if k not in ("ct_dot_seeded", "seeded_pre", "seeded_c0"))
 
 
 def _device():
@@ -152,8 +157,18 @@ def test_per_device_error_propagates_from_a_card_worker():
     assert done == [torch.device("cpu")]
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (K2 then takes its one-coefficient loads)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
 def test_ct_dot_kernel_matches_plain():
-    """Blocked and not, a long contraction (K=512), unequal limb counts."""
+    """Blocked and not, a long contraction (K=512), unequal limb counts,
+    every K held in registers (1, 2, 4, 8, 16, 32; HyDia's K = 32 x 16
+    blocks), K not a power of two over several blocks, misaligned
+    operands, and Blind-Match's K = 4 x 128 blocks at its 15 limbs."""
     dev = _device()
     ctx = CkksContext(PARAMS, seed=1, device=dev)
     L = PARAMS.num_limbs
@@ -163,10 +178,49 @@ def test_ct_dot_kernel_matches_plain():
         (_residues(gen, (512, 2, L, 512), q), _residues(gen, (512, 2, L, 512), q)),
         (_residues(gen, (8, 2, L, 512), q), _residues(gen, (3, 8, 2, L, 512), q)[..., :5, :]),
         (_residues(gen, (8, 2, L, 512), q)[..., :4, :], _residues(gen, (8, 2, L, 512), q)),
-    ]
+        (_residues(gen, (32, 2, L, 512), q), _residues(gen, (16, 32, 2, L, 512), q)),
+        (_residues(gen, (5, 2, L, 512), q), _residues(gen, (3, 5, 2, L, 512), q)),
+    ] + [(_residues(gen, (K, 2, L, 512), q), _residues(gen, (2, K, 2, L, 512), q))
+         for K in (1, 2, 4, 16)]
+    A, B = cases[-1]
+    cases.append((_misaligned(A), _misaligned(B)))
     for A, B in cases:
         got = _launched("ct_dot", lambda: senders.ct_dot(ctx, A, B))
-        assert torch.equal(got, senders.ct_dot_plain(ctx, A, B))
+        assert torch.equal(got, senders.ct_dot_plain(ctx, A, B)), (tuple(A.shape), tuple(B.shape))
+    blind = CkksContext(SchemeParams.create(ring_dim=512, mult_depth=12, security="none"),
+                        seed=1, device=dev)
+    assert blind.Lq == 15
+    qb, _ = blind._qrow(blind.q_limbs(15))
+    A, B = _residues(gen, (4, 2, 15, 512), qb), _residues(gen, (128, 4, 2, 15, 512), qb)
+    got = _launched("ct_dot", lambda: senders.ct_dot(blind, A, B))
+    assert torch.equal(got, senders.ct_dot_plain(blind, A, B))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_ct_dot_seeded_kernel_matches_plain(n):
+    """The seeded contraction against its plain version and against K5's
+    c1 stacked with c0 and contracted by K2: HyDia's blocks (K = 32 x 16),
+    HERS's single block (K = 64 here), K not a power of two, A at fewer
+    limbs than the group (the counter runs over the group's L), seed and
+    group >= 2^31, and a padding group (valid=False: zero, no launch)."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    L = ctx.Lq
+    q, _ = ctx._qrow(ctx.q_limbs(L))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    seed, group = 2 ** 31 + 5, 2 ** 32 - 3
+    for K, nb, LA in [(32, 16, L), (64, 1, L), (3, 2, L), (32, 2, 5)]:
+        A = _residues(gen, (K, 2, LA, n), q[:LA])
+        c0 = _residues(gen, (nb * K, L, n), q)
+        got = _launched("ct_dot_seeded", lambda: senders.ct_dot_seeded(ctx, A, c0, seed, group, nb))
+        assert got.shape == (nb, 3, min(LA, L), n)
+        assert torch.equal(got, senders.ct_dot_seeded_plain(ctx, A, c0, seed, group, nb))
+        stack = torch.stack([c0, ctx.expand_c1(seed, group, nb * K, L)], dim=1)
+        assert torch.equal(got, senders.ct_dot(ctx, A, stack.view(nb, K, 2, L, n))), (K, nb, LA)
+    before = kernels.counts()["ct_dot_seeded"]
+    pad = senders.ct_dot_seeded(ctx, A, c0, seed, group, nb, valid=False)
+    assert kernels.counts()["ct_dot_seeded"] == before and not pad.any()
+    assert torch.equal(pad, senders.ct_dot_seeded_plain(ctx, A, c0, seed, group, nb, valid=False))
 
 
 def test_fbc_kernel_matches_plain():
@@ -242,18 +296,24 @@ def _numpy_noise(params):
     return dict(noise=noise, seeded_noise=seeded_noise)
 
 
-@pytest.mark.parametrize("tier", ["pinned", "resident"])
-def test_streamed_slice_on_card_matches_cpu(tier):
-    """Streamed HyDia (2 groups) on the card equals the CPU (plain) run bit
-    for bit: the store, membership and index, with every group in pinned
-    host memory (prefetch on a side stream) or all resident.  engine="auto"
+@pytest.mark.parametrize("tier", ["pinned", "resident", "pinned, chunks of 1"])
+def test_streamed_slice_on_card_matches_cpu(tier, monkeypatch):
+    """Streamed HyDia (2 groups; 4 in chunks of 1) on the card equals the
+    CPU (plain) run bit for bit: the store, membership and index, with
+    every group in pinned host memory (prefetch on a side stream; in
+    chunks of 1 a compare runs between each group's contraction and the
+    next copy into its staging buffer) or all resident.  engine="auto"
     never takes the host C++ engine; every kernel runs on the card and none
     on the CPU."""
     dev = _device()
     cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
     params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
                                  security="none")
-    query, db = dio.gen_dataset(300, 64, seed=1)
+    nvec = 300
+    if tier == "pinned, chunks of 1":
+        monkeypatch.setenv("IMTPU_COMPARE_CHUNK", "1")
+        tier, nvec = "pinned", 1000
+    query, db = dio.gen_dataset(nvec, 64, seed=1)
     outs = {}
     for d in ("cpu", dev):
         ctx = CkksContext(params, seed=7, device=d, **_numpy_noise(params))
@@ -275,7 +335,7 @@ def test_streamed_slice_on_card_matches_cpu(tier):
     for a, b in zip(pc.sender.store.groups, store.groups):
         assert torch.equal(a, b.cpu())
     assert all(v == 0 for v in cc.values())
-    assert all(cg[k] > 0 for k in UNSHARDED), cg
+    assert all(cg[k] > 0 for k in STREAMED), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -322,8 +382,7 @@ def test_slice_on_card_matches_cpu():
     assert all(v == 0 for v in cc.values())
     # the in-memory DB runs all but the seeded kernels, which belong to the
     # streamed store (decryption is not in the counted run)
-    assert all(cg[k] > 0 for k in UNSHARDED
-               if k not in ("expand_c1", "seeded_pre", "seeded_c0", "decrypt_mac")), cg
+    assert all(cg[k] > 0 for k in IN_MEMORY if k != "decrypt_mac"), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -481,8 +540,8 @@ def test_hers_on_card_matches_cpu(streamed):
     (_, mc, ic, _, cc), (pg, mg, ig, member, cg) = outs["cpu"], outs[str(dev)]
     assert all(v == 0 for v in cc.values())
     # in memory: one matrix, one score, one flag, so no row sum of flags
-    skip = () if streamed else ("expand_c1", "seeded_pre", "seeded_c0", "mod_sum")
-    assert all(cg[k] > 0 for k in UNSHARDED if k not in skip), cg
+    path = STREAMED if streamed else tuple(k for k in IN_MEMORY if k != "mod_sum")
+    assert all(cg[k] > 0 for k in path), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -546,9 +605,8 @@ def test_approaches_on_card_match_cpu(approach):
     (_, mc, ic, _, cc), (pg, mg, ig, member, cg) = outs["cpu"], outs[str(dev)]
     assert all(v == 0 for v in cc.values())
     # Baseline and GROTE: one merged score, one flag, so no row sum of flags
-    skip = {"expand_c1", "seeded_pre", "seeded_c0"} | (
-        {"ct_dot", "mod_sum"} if approach != 3 else set())
-    assert all(cg[k] > 0 for k in UNSHARDED if k not in skip), cg
+    skip = {"ct_dot", "mod_sum"} if approach != 3 else set()
+    assert all(cg[k] > 0 for k in IN_MEMORY if k not in skip), cg
     assert torch.equal(mc.data, mg.data.cpu())
     for a, b in zip(ic, ig):
         assert torch.equal(a.data, b.data.cpu())
@@ -619,9 +677,9 @@ def _sharded_vs_single(mesh_devices, streamed, n_groups):
     assert proto.decrypt_membership(res) is True
     assert proto.decrypt_index([tc.Ciphertext(f.data.to(dev), f.scale) for f in sidx]) == [0]
     # not in the run: setup's and the query's encryption, decryption
-    skip = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0", "decrypt_mac") + (
-        () if streamed else ("expand_c1",))
-    assert all(counts[k] > 0 for k in kernels.KERNELS if k not in skip), counts
+    skip = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0", "decrypt_mac")
+    path = (STREAMED if streamed else IN_MEMORY) + ("psum_mod",)
+    assert all(counts[k] > 0 for k in path if k not in skip), counts
 
 
 @pytest.mark.parametrize("streamed", [False, True])
