@@ -14,7 +14,9 @@ line is printed):
      K7-K10: rescale, mod-down, digit decomposition, tensor product,
      decryption, public-key encryption) on the card at the shapes of the
      main path and require bit-exact equality with its plain torch version
-     on the same inputs; print both times (CUDA events); ct_dot also at
+     on the same inputs; print both times (CUDA events); K8 and K7's two
+     passes also alone, without their K1 launches (relinearization R = 16,
+     giant steps R = 15, l = 14), before the fused operations; ct_dot also at
      Blind-Match's K = 4 x 128 blocks of 15 limbs, ct_dot_seeded at HERS's
      shape, with fewer limbs than the group and for a padding group, each
      also equal to K5's c1 stacked with c0 and contracted by ct_dot; K1
@@ -23,7 +25,10 @@ line is printed):
      holds one (utils/ntt_bench.py); the streamed membership's 64-group
      contraction through ct_dot_seeded and through a stack filled by K5
      and a copy, in turns, and K2 beside the earlier design's ct_dot.cu
-     where build/ct_dot_prev/ holds one (utils/dot_bench.py);
+     where build/ct_dot_prev/ holds one (utils/dot_bench.py); K3 and K8
+     alone at the main path's shapes beside the earlier design's
+     basis_convert.cu and decompose.cu where build/fbc_prev/ holds them
+     (utils/fbc_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
@@ -133,7 +138,10 @@ def ntt_ops(rows, n):
 
 
 def fbc_ops(rows, g, t, n):
-    return rows * n * (g * MUL + g * t * (MUL + ADD) + t * (MUL + ADD))
+    """A conversion's operations (csrc/fbc.cuh): y_i (one modular product
+    each) and, per output, g + 1 products added into 64-bit sums and one
+    Montgomery step per partial of four plus a final one."""
+    return rows * n * (g * MUL + t * ((g + 1) * MAD + (2 + (g > 4)) * MUL))
 
 
 def rand_residues(shape, primes, gen, device):
@@ -235,6 +243,16 @@ def check_kernels(ctx, device):
     del A, B
     check_blind_width(device, gen, record)
 
+    # K3 on the main path: the mod-down's centred conversion of a batched
+    # keyswitch of 16 ciphertexts; then a digit's conversion
+    sp, lim = ctx.sp_limbs(), ctx.q_limbs(l)
+    c, shift = ctx._fbc_consts(sp, lim), ctx._centre_shift(l)
+    pre, post = shift[0][0], shift[1][0]
+    x = rand_residues((32, len(sp), n), [P[i] for i in sp], gen, device)
+    record("fbc", f"{len(sp)}->{len(lim)} x32 centred (mod-down)", ctx._fbc(x, sp, lim, shift),
+           fbc_plain(x, c, pre, post), lambda: ctx._fbc(x, sp, lim, shift),
+           lambda: fbc_plain(x, c, pre, post),
+           32 * (len(sp) + len(lim)) * n * 4, fbc_ops(32, len(sp), len(lim), n))
     grp = tuple(ctx.groups[0])                         # 5 limbs
     other = tuple(i for i in ctx.ext_limbs(l) if i not in grp)  # 15 limbs
     c = ctx._fbc_consts(grp, other)
@@ -242,12 +260,6 @@ def check_kernels(ctx, device):
     record("fbc", f"{len(grp)}->{len(other)} x16", ctx._fbc(x, grp, other), fbc_plain(x, c),
            lambda: ctx._fbc(x, grp, other), lambda: fbc_plain(x, c),
            16 * (len(grp) + len(other)) * n * 4, fbc_ops(16, len(grp), len(other), n))
-    sp, lim = ctx.sp_limbs(), ctx.q_limbs(l)
-    c = ctx._fbc_consts(sp, lim)
-    x = rand_residues((32, len(sp), n), [P[i] for i in sp], gen, device)
-    record("fbc", f"{len(sp)}->{len(lim)} x32", ctx._fbc(x, sp, lim), fbc_plain(x, c),
-           lambda: ctx._fbc(x, sp, lim), lambda: fbc_plain(x, c),
-           32 * (len(sp) + len(lim)) * n * 4, fbc_ops(32, len(sp), len(lim), n))
     del x
 
     ext = ctx.ext_limbs(l)
@@ -291,10 +303,12 @@ def check_kernels(ctx, device):
            lambda: seeded_c0_plain(ctx, x, seed, grp),
            (2 * B * Lq * n + Lq * n) * 4, B * Lq * n * (UNIFORM_OPS + MUL + ADD))
     del x, xs, want, hi, lo, e
+    check_alone(ctx, device, gen, record)
     check_fused(ctx, device, gen, record, rows)
     check_residue_ops(ctx, device, gen, record)
     check_grote_width(device, gen, record)
     check_dot_bench(ctx)
+    check_fbc_bench(ctx)
     return rows
 
 
@@ -390,6 +404,72 @@ def check_dot_bench(ctx):
     for r in dot_bench.measure(ctx, baseline):
         log("dot_bench " + json.dumps(r))
     free_device()
+
+
+def check_fbc_bench(ctx):
+    """Phase 2, utils/fbc_bench.py: K3 and K8 alone at the main path's
+    shapes; with build/fbc_prev/ (an earlier basis_convert.cu, decompose.cu
+    and the headers beside them), each beside that design built alone, in
+    turns."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import fbc_bench
+
+    src = Path(__file__).resolve().parent / "build" / "fbc_prev"
+    have = all((src / f).exists() for f in fbc_bench.SOURCES)
+    baseline = fbc_bench.build_baseline(src) if have else None
+    if baseline is None:
+        log(f"fbc_bench: no earlier basis_convert.cu / decompose.cu in {src}: "
+            "this tree's kernels alone")
+    for r in fbc_bench.measure(ctx, baseline):
+        log("fbc_bench " + json.dumps(r))
+    free_device()
+
+
+def check_alone(ctx, device, gen, record):
+    """Phase 2, K8 and K7's two passes each launched alone, without the
+    K1 launches around them, at the main path's shapes: K8 over a
+    relinearization's R = 16 and the giant steps' R = 15 coefficient
+    stacks at l = 14; the lift pass over the compare circuit's stack of 16
+    ciphertexts; the sub-scale pass of the giant steps' mod-down (R = 15,
+    each row's c0 gathered through its automorphism) and of a
+    relinearization's (R = 16, c0 and c1 added)."""
+    from image_matching_tpu_torch.ckks import context as tc
+
+    P, n, l, S = ctx.all_primes, ctx.n, ctx.Lq, ctx.S
+    qp = P[:l]
+    E = l + S
+    for R in (16, 15):
+        coeff = rand_residues((R, l, n), qp, gen, device)
+        record("decompose", f"K8 alone R={R}x{l} limbs", ctx._decompose_coeff(coeff, l),
+               tc.decompose_coeff_plain(ctx, coeff, l), lambda: ctx._decompose_coeff(coeff, l),
+               lambda: tc.decompose_coeff_plain(ctx, coeff, l),
+               R * (l + ctx.dnum * E) * n * 4,
+               sum(fbc_ops(R, len(g), len(o), n) for g, o in ctx._digits(l)))
+    del coeff
+    top = rand_residues((16, 2, 1, n), [P[l - 1]], gen, device)
+    record("rescale_lift", f"lift alone 16x2x1 -> {l - 1} limbs", ctx._rescale_lift(top, l),
+           tc.rescale_lift_plain(ctx, top, l), lambda: ctx._rescale_lift(top, l),
+           lambda: tc.rescale_lift_plain(ctx, top, l), 16 * 2 * l * n * 4,
+           16 * 2 * (l - 1) * n * (2 * MUL + 2 * ADD))
+    del top
+    ext = ctx.ext_limbs(l)
+    perms = torch.from_numpy(np.stack(
+        [ctx.plan.auto_perm(ctx.rotation_galois(32 * r)) for r in range(1, 16)])).to(device)
+    pinv = ctx._pinv(l)
+    for R, k, p in [(15, 1, perms), (16, 2, None)]:
+        comp = rand_residues((R, 2, E, n), [P[i] for i in ext], gen, device)
+        t = rand_residues((R, 2, l, n), qp, gen, device)
+        add = rand_residues((R, k, l, n), qp, gen, device)
+        what = "giant steps, c0 gathered" if p is not None else "relinearization"
+        record("sub_scale", f"sub-scale alone R={R}x2x{l} limbs ({what})",
+               ctx._sub_scale(comp, t, pinv[1], add, p),
+               tc.sub_scale_plain(ctx, comp, t, pinv[0], add, p),
+               lambda: ctx._sub_scale(comp, t, pinv[1], add, p),
+               lambda: tc.sub_scale_plain(ctx, comp, t, pinv[0], add, p),
+               (R * (2 + 2 + k + 2) * l * n + (R * n if p is not None else 0)) * 4,
+               R * 2 * l * n * (MUL + 2 * ADD) + R * k * l * n * ADD)
+    del comp, t, add, perms
 
 
 def check_ntt_shapes(plan, rows):

@@ -110,7 +110,26 @@ class FbcConsts:
     qhat: torch.Tensor     # int64 [g, t] (Qhat_i * R^2) mod p
     qg_r2: torch.Tensor    # int64 [t, 1] (Q * R^2) mod p
     inv_q: torch.Tensor    # float32 [g] 1/q_i
-    packed: torch.Tensor   # int32: qs, qnegs, t_std, inv_q, qd, qnegd, qg_r2, qhat
+    packed: torch.Tensor   # int32: fbc_pack_targets, then qs, qnegs, t_std, inv_q
+
+
+FBC_TW = 12  # words per target in the kernel's constants (csrc/fbc.cuh)
+
+
+def fbc_pack_targets(src_p: Sequence[int], dst_p: Sequence[int],
+                     qneg_d: np.ndarray) -> np.ndarray:
+    """The kernel's per-target constants (csrc/fbc.cuh), uint32 [t *
+    FBC_TW]: for each target prime p, c_i = Qhat_i R^3 mod p for the g <= 8
+    source primes (zero-padded to 8), c_v = -Q R^3 mod p, p, -p^-1 mod 2^32
+    and a zero.  One 64-bit sum of y_i c_i and v c_v and two Montgomery
+    steps give (sum_i y_i Qhat_i - v Q) R mod p."""
+    Q = math.prod(src_p)
+    out = np.zeros((len(dst_p), FBC_TW), dtype=np.uint32)
+    for j, p in enumerate(dst_p):
+        r3 = R ** 3 % p
+        out[j, :len(src_p)] = [(Q // q) % p * r3 % p for q in src_p]
+        out[j, 8:11] = (-Q * r3 % p, p, qneg_d[j])
+    return out.ravel()
 
 
 def fbc_plain(x: torch.Tensor, c: FbcConsts, pre: Optional[torch.Tensor] = None,
@@ -211,20 +230,34 @@ def rescale_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
     """Divide [..., k, l, N] by the top prime q_{l-1} -> [..., k, l-1, N]
     (K7 with K1 around its lift pass)."""
     l = data.shape[-2]
-    qt = int(ctx.all_primes[l - 1])
-    lim_rest = ctx.q_limbs(l - 1)
-    q, rinv = ctx._qrow(lim_rest)
-    r2 = ctx.r2_64[: l - 1, None]
-    # top limb -> standard-form coefficients < qt
     top_c = ctx.plan.inv_plain(data[..., l - 1 : l, :], (l - 1,))
-    top_std = top_c.long() * mm.host_rinv(qt) % qt  # [k, 1, N]
-    # centered transfer mod each remaining prime
+    t_eval = ctx.plan.fwd_plain(rescale_lift_plain(ctx, top_c, l), ctx.q_limbs(l - 1))
+    return sub_scale_plain(ctx, data, t_eval, ctx._qtinv(l)[0])
+
+
+def rescale_lift_plain(ctx: "CkksContext", top_c: torch.Tensor, l: int) -> torch.Tensor:
+    """K7's lift pass alone: the top limb q_{l-1} of a rescale in the
+    coefficient domain [..., 1, N] -> its centred remainder mod each other
+    limb, [..., l-1, N] Montgomery."""
+    qt = int(ctx.all_primes[l - 1])
+    q, rinv = ctx._qrow(ctx.q_limbs(l - 1))
+    r2 = ctx.r2_64[: l - 1, None]
+    top_std = top_c.long() * mm.host_rinv(qt) % qt  # standard form, < qt
     pos = mm.reduce_small(top_std, q)
     negv = mm.mod_neg(mm.reduce_small(qt - top_std, q), q)
     t_std = torch.where(top_std <= qt // 2, pos, negv)
-    t_eval = ctx.plan.fwd_plain(mm.mont_mul(t_std, r2, q, rinv), lim_rest)
-    diff = mm.mod_sub(data[..., : l - 1, :], t_eval, q)
-    return mm.mont_mul(diff, ctx._qtinv(l)[0], q, rinv)
+    return mm.mont_mul(t_std, r2, q, rinv)
+
+
+def sub_scale_plain(ctx: "CkksContext", x: torch.Tensor, t: torch.Tensor,
+                    cinv: torch.Tensor, add: Optional[torch.Tensor] = None,
+                    perms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7's sub-scale pass alone: (x[..., :l, :] - t) * cinv per limb
+    (cinv int64 [l, 1] Montgomery) over t's l limbs, with ``add`` (see
+    ``add_rotated_plain``) added."""
+    q, rinv = ctx._qrow(ctx.q_limbs(t.shape[-2]))
+    out = mm.mont_mul(mm.mod_sub(x[..., : t.shape[-2], :], t, q), cinv, q, rinv)
+    return out if add is None else add_rotated_plain(out, add, perms, q)
 
 
 def add_rotated_plain(out: torch.Tensor, add: torch.Tensor,
@@ -254,10 +287,7 @@ def moddown_plain(ctx: "CkksContext", comp: torch.Tensor, l: int,
     cp = ctx.plan.inv_plain(comp[..., l:, :], sp)
     pre, post = ctx._centre_shift(l)
     conv = fbc_plain(cp, ctx._fbc_consts(sp, lim), pre[0], post[0])
-    qd, rinvd = ctx._qrow(lim)
-    diff = mm.mod_sub(comp[..., :l, :], ctx.plan.fwd_plain(conv, lim), qd)
-    out = mm.mont_mul(diff, ctx._pinv(l)[0], qd, rinvd)
-    return out if add is None else add_rotated_plain(out, add, perms, qd)
+    return sub_scale_plain(ctx, comp, ctx.plan.fwd_plain(conv, lim), ctx._pinv(l)[0], add, perms)
 
 
 def decompose_plain(ctx: "CkksContext", poly_eval: torch.Tensor, l: int,
@@ -267,7 +297,13 @@ def decompose_plain(ctx: "CkksContext", poly_eval: torch.Tensor, l: int,
     every digit to Q_l + P -> [..., ndig, l + S, N] evaluation Montgomery
     (K1 with the gather, K8, K1)."""
     coeff = ctx.plan.inv_plain(permute_rows(poly_eval, perms), ctx.q_limbs(l))
-    ext = ctx.ext_limbs(l)
+    return ctx.plan.fwd_plain(decompose_coeff_plain(ctx, coeff, l), ctx.ext_limbs(l))
+
+
+def decompose_coeff_plain(ctx: "CkksContext", coeff: torch.Tensor, l: int) -> torch.Tensor:
+    """K8's pass alone: coefficient-domain rows [..., l, N] -> every live
+    digit extended to Q_l + P, [..., ndig, l + S, N] in the coefficient
+    domain."""
     digs = []
     for g, other in ctx._digits(l):
         a, b = g[0], g[-1] + 1
@@ -276,7 +312,7 @@ def decompose_plain(ctx: "CkksContext", poly_eval: torch.Tensor, l: int,
         # ext order: conv rows below the digit, the digit's own rows
         # copied exactly, then the remaining conv rows
         digs.append(torch.cat([conv[..., :a, :], x, conv[..., a:, :]], dim=-2))
-    return ctx.plan.fwd_plain(torch.stack(digs, dim=-3), ext)
+    return torch.stack(digs, dim=-3)
 
 
 def tensor_plain(ctx: "CkksContext", x: torch.Tensor,
@@ -396,6 +432,12 @@ class CkksContext:
         self._qrow_cache: Dict = {}
         self._const_cache: Dict = {}
         self._fbc_cache: Dict = {}
+        # device index tensors by row tuple, and (set, rows) -> (index,
+        # gathered perms) of rotation rows that no slice of their set
+        # holds: built once, so no pageable host-to-device copy (which
+        # blocks the host until the stream drains) runs per call
+        self._idx_cache: Dict = {}
+        self._rot_cache: Dict = {}
         self._keygen()
         # rotation keys live in stacked sets (perms [R, N], keys
         # [R, dnum, 2, Ltot, N]) so groups of rotations run as one batched
@@ -430,17 +472,26 @@ class CkksContext:
         r._pow2_rots = list(self._pow2_rots)
         r._rng = copy.deepcopy(self._rng)
         r._qrow_cache, r._const_cache, r._fbc_cache, r._pt_cache = {}, {}, {}, {}
+        r._idx_cache, r._rot_cache = {}, {}
         return r
 
     # ------------------------------------------------------------------
     # constant helpers
     # ------------------------------------------------------------------
 
+    def _index(self, rows: Sequence[int]) -> torch.Tensor:
+        """int64 tensor of ``rows`` on this context's device, built on
+        first use and kept."""
+        key = tuple(rows)
+        if key not in self._idx_cache:
+            self._idx_cache[key] = torch.tensor(key, dtype=torch.int64, device=self.device)
+        return self._idx_cache[key]
+
     def _qrow(self, limbs: Sequence[int]):
         """Per-limb (q, R^{-1} mod q) int64 views [l, 1]."""
         key = tuple(limbs)
         if key not in self._qrow_cache:
-            idx = torch.tensor(key, dtype=torch.int64, device=self.device)
+            idx = self._index(key)
             self._qrow_cache[key] = (self.q64[idx][:, None], self.rinv64[idx][:, None])
         return self._qrow_cache[key]
 
@@ -614,6 +665,7 @@ class CkksContext:
             new.append((g, r))
         if not new:
             return
+        self._rot_cache.clear()  # no gathered rows outlive a change of the sets
         set_idx = len(self._rot_sets)
         perms = np.stack([self.plan.auto_perm(g) for g, _ in new])
         keys = torch.empty((len(new), self.dnum, 2, self.Ltot, self.n),
@@ -1031,16 +1083,21 @@ class CkksContext:
         qt = int(self.all_primes[l - 1])
         if not x.data.is_cuda:
             return Ciphertext(rescale_plain(self, x.data), x.scale / qt)
-        lead, n = x.data.shape[:-2], self.n
-        k = math.prod(lead)
         top = self.plan.inv(x.data[..., l - 1 : l, :], (l - 1,))  # [..., 1, N]
-        kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
-        t = torch.empty((*lead, l - 1, n), dtype=torch.int32, device=x.data.device)
-        kernels.launch("imtpu_rescale_lift", "rescale_lift", t, kernels.ptr(top),
-                       qt, int(self.qneg_np[l - 1]), kernels.ptr(self.q32),
-                       kernels.ptr(self.qneg32), kernels.ptr(self.r2_32), k, l - 1, n)
-        t = self.plan.fwd(t, self.q_limbs(l - 1))
+        t = self.plan.fwd(self._rescale_lift(top, l), self.q_limbs(l - 1))
         return Ciphertext(self._sub_scale(x.data, t, self._qtinv(l)[1]), x.scale / qt)
+
+    def _rescale_lift(self, top: torch.Tensor, l: int) -> torch.Tensor:
+        """K7's lift pass alone: the top limb's coefficient-domain CUDA
+        rows [..., 1, N] -> [..., l-1, N] (``rescale_lift_plain``)."""
+        lead, n = top.shape[:-2], self.n
+        kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
+        t = torch.empty((*lead, l - 1, n), dtype=torch.int32, device=top.device)
+        kernels.launch("imtpu_rescale_lift", "rescale_lift", t, kernels.ptr(top),
+                       int(self.all_primes[l - 1]), int(self.qneg_np[l - 1]),
+                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), kernels.ptr(self.r2_32),
+                       math.prod(lead), l - 1, n)
+        return t
 
     def _sub_scale(self, x: torch.Tensor, t: torch.Tensor, cinv: torch.Tensor,
                    add: Optional[torch.Tensor] = None,
@@ -1102,10 +1159,9 @@ class CkksContext:
         qg_r2 = np.array([QG * R * R % dq for dq in dst_p], dtype=np.uint32)[:, None]
         inv_q = np.array([1.0 / q for q in src_p], dtype=np.float32)[:, None]
         dev = self.device
-        packed = np.concatenate([
-            self.q_np[list(src)], self.qneg_np[list(src)], t_std[:, 0],
-            inv_q[:, 0].view(np.uint32), self.q_np[list(dst)], self.qneg_np[list(dst)],
-            qg_r2[:, 0], qhat.ravel()])
+        packed = np.concatenate([fbc_pack_targets(src_p, dst_p, self.qneg_np[list(dst)]),
+                                 self.q_np[list(src)], self.qneg_np[list(src)], t_std[:, 0],
+                                 inv_q[:, 0].view(np.uint32)])
         qs, rinv_s = self._qrow(src)
         qd, rinv_d = self._qrow(dst)
         c = FbcConsts(
@@ -1139,6 +1195,7 @@ class CkksContext:
             raise ValueError("fbc: batch exceeds the kernel's grid (65535)")
         out = torch.empty((*x.shape[:-2], t, n), dtype=torch.int32, device=x.device)
         kernels.check_cuda("fbc", x, c.packed, *(v for v in (pre[1], post[1]) if v is not None))
+        kernels.check_aligned("fbc", x)
         kernels.launch("imtpu_fbc", "fbc", out, kernels.ptr(x),
                        kernels.ptr(c.packed), kernels.ptr(pre[1]), kernels.ptr(post[1]),
                        batch, g, t, n)
@@ -1172,8 +1229,14 @@ class CkksContext:
         ``decompose_plain`` on the CPU."""
         if not poly_eval.is_cuda:
             return decompose_plain(self, poly_eval, l, perms)
-        n = self.n
         coeff = self.plan.inv(poly_eval, self.q_limbs(l), perms)
+        return self.plan.fwd(self._decompose_coeff(coeff, l), self.ext_limbs(l))
+
+    def _decompose_coeff(self, coeff: torch.Tensor, l: int) -> torch.Tensor:
+        """K8 alone: coefficient-domain CUDA rows [..., l, N] -> the digit
+        stack [..., ndig, l + S, N], still in the coefficient domain
+        (``decompose_coeff_plain``)."""
+        n = self.n
         consts, info = self._decompose_consts(l)
         ndig, E = info.numel() // 3, l + self.S
         B = coeff.numel() // (l * n)
@@ -1182,9 +1245,10 @@ class CkksContext:
         out = torch.empty((*coeff.shape[:-2], ndig, E, n), dtype=torch.int32,
                           device=coeff.device)
         kernels.check_cuda("decompose", coeff, consts, info)
+        kernels.check_aligned("decompose", coeff)
         kernels.launch("imtpu_decompose", "decompose", out, kernels.ptr(coeff),
                        l * n, kernels.ptr(consts), kernels.ptr(info), B, ndig, E, n)
-        return self.plan.fwd(out, self.ext_limbs(l))
+        return out
 
     def _moddown(self, comp: torch.Tensor, l: int, add: Optional[torch.Tensor] = None,
                  perms: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -1377,14 +1441,21 @@ class CkksContext:
 
     def _rot_rows(self, rots: Sequence[int]):
         """Stacked (perms [R, N], keys [R, ...]) for the given rotations,
-        from the LOWEST set holding all of them (a zero-copy prefix view
-        when they are a prefix of that set)."""
+        from the LOWEST set holding all of them: a zero-copy view when their
+        rows are consecutive in that set (a HyDia sender's giant steps
+        follow its baby steps), else the rows gathered through a cached
+        device index (the perms gathered once, the keys per call)."""
         sid, rows = self._rot_locate(rots)
         perms, keys = self._rot_sets[sid]
-        if rows == list(range(len(rows))):
-            return perms[: len(rows)], keys[: len(rows)]
-        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
-        return perms[idx], keys[idx]
+        a = rows[0]
+        if rows == list(range(a, a + len(rows))):
+            return perms[a : a + len(rows)], keys[a : a + len(rows)]
+        key = (sid, tuple(rows))
+        if key not in self._rot_cache:
+            idx = self._index(rows)
+            self._rot_cache[key] = (idx, perms[idx])
+        idx, p = self._rot_cache[key]
+        return p, keys[idx]
 
     def hoisted_rotate_stack(self, x: Ciphertext, digs: torch.Tensor,
                              rots: Sequence[int]) -> torch.Tensor:
@@ -1419,8 +1490,7 @@ class CkksContext:
         perms, keys = self._rot_sets[sid]
         out = data
         for k, row in zip(used, rows):
-            sel = torch.tensor([i for i, a in enumerate(amounts) if (a >> k) & 1],
-                               dtype=torch.int64, device=data.device)
+            sel = self._index([i for i, a in enumerate(amounts) if (a >> k) & 1])
             rot = self._rotate_rows(out.index_select(0, sel), perms[row], keys[row])
             out = out.index_copy(0, sel, rot)
         return out

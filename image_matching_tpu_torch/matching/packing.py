@@ -113,7 +113,7 @@ def _rotate_and_pack(ctx: CkksContext, cts: List[Ciphertext], amounts: List[int]
         if rows == list(range(rows[0], rows[-1] + 1)):
             sel = rotated[rows[0] : rows[-1] + 1]
         else:
-            sel = rotated.index_select(0, torch.tensor(rows, device=rotated.device))
+            sel = rotated.index_select(0, ctx._index(rows))
         outs.append(Ciphertext(mm.row_sum(sel, mod), cts[0].scale))
     return outs
 

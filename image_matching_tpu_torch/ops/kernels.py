@@ -217,6 +217,14 @@ def check_cuda(name: str, *tensors, contiguous: bool = True, dtype=torch.int32):
             raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def check_aligned(name: str, t: torch.Tensor):
+    """Raise unless t starts on a 16-byte boundary (a fresh allocation
+    or a slice of whole rows of one does): the kernels that move four
+    residues per access take no other."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
+
+
 def row_blocks(t: torch.Tensor):
     """(t, batch, stride) for t [..., L, N] whose [L, N] blocks are each
     contiguous and lie ``stride`` elements apart along the flattened

@@ -51,6 +51,7 @@ def load_context_state(ctx: CkksContext, *, s_eval: np.ndarray, pk_b: np.ndarray
     ctx._rot_sets = [
         (torch.from_numpy(np.array(p, dtype=np.int32)).to(dev), mm.to_tensor(k, dev))
         for p, k in rot_sets]
+    ctx._rot_cache.clear()
     ctx.rot_keys = {int(g): {int(s): int(r) for s, r in d.items()}
                     for g, d in (rot_keys or {}).items()}
     if pow2_set_idx is not None:

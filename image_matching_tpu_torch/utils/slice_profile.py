@@ -15,11 +15,15 @@ one membership of the sharded scenario over a mesh naming the card N
 times) and reports device kernel time, busy share (kernel time over the
 profiled wall time) and the time and launches of each hand-written kernel;
 before that, the launches of one membership by kernel and K1's launches by
-row count (``NttPlan.rows_hist``).
+row count (``NttPlan.rows_hist``), and digests of the membership ciphertext
+and the index flags, which two trees that compute bit-equal results print
+alike.  Each profile also counts the memory copies by kind (a pageable
+host-to-device copy blocks the host until the stream drains).
 Prints the summary and writes it with the profiler tables to --out.
 """
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -51,6 +55,10 @@ def timed(out, label, fn):
     torch.cuda.synchronize()
     out[label] = time.perf_counter() - t
     return r
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
@@ -92,6 +100,9 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
         timed(r, "index_s", lambda: sender.run_index(qcts))
         say(f"rep {rep} " + json.dumps(r))
     say(f"membership decrypts to {receiver.decrypt_membership(out)}")
+    flags = sender.run_index(qcts)
+    say(f"sha256 of the membership ciphertext {_digest(out.data)}, of the index flags "
+        f"{_digest(torch.stack([f.data for f in flags]))} (equal across trees: bit-equal)")
     hist = ctx.plan.rows_hist
     hist.clear()
     before = kernels.counts()
@@ -123,12 +134,14 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
             wall = time.perf_counter() - t
         ka = prof.key_averages()
         dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = {e.key: e.count for e in ka if "Memcpy" in e.key}
         busy = sum(e.self_device_time_total for e in dev) / 1e6
         ours = {k: (sum(e.self_device_time_total for e in dev if k in e.key) / 1e6,
                     sum(e.count for e in dev if k in e.key)) for k in OURS}
         say(f"[{label}] profiled wall {wall:.4f} s, device kernel time {busy:.4f} s, "
             f"busy share {busy / wall:.3f}, kernel launches {sum(e.count for e in dev)}, "
-            f"(seconds, launches) of ours {json.dumps(ours)}")
+            f"(seconds, launches) of ours {json.dumps(ours)}; memory copies by kind "
+            f"{json.dumps(copies)}")
         log.write(ka.table(sort_by="self_cuda_time_total", row_limit=30,
                            max_name_column_width=60) + "\n")
     say(f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")

@@ -474,6 +474,100 @@ def test_decompose_kernel_matches_plain(n):
             assert torch.equal(got, tc.decompose_plain(ctx, poly, l, p))
 
 
+def _approach_ctx(dev, approach, n):
+    """A context of ``approach``'s own limb structure (its depth at the
+    default MatchConfig) at ring n."""
+    cfg = MatchConfig()
+    depth = compute_required_depth(approach, cfg.comp_depth, cfg.alpha_depth)
+    return CkksContext(SchemeParams.create(ring_dim=n, mult_depth=depth, security="none"),
+                       seed=approach, device=dev)
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary, which the wrappers of the 16-byte-access kernels refuse."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    out = flat.view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("approach", [1, 2, 3, 5])
+def test_fbc_kernel_every_width(approach):
+    """K3 against fbc_plain at every (g, t) the approaches reach (HERS
+    shares HyDia's parameters): each live digit into the rest of the
+    extended basis and the centred mod-down from the special limbs, at
+    every level, batches of 1 and 2 (split over more blocks) and 16; a
+    misaligned input raises."""
+    dev = _device()
+    ctx = _approach_ctx(dev, approach, 512)
+    gen = torch.Generator(device=dev).manual_seed(30 + approach)
+    sp = ctx.sp_limbs()
+    seen = set()
+    for l in range(1, ctx.Lq + 1):
+        convs = [(g, o, None) for g, o in ctx._digits(l)]
+        convs.append((sp, ctx.q_limbs(l), ctx._centre_shift(l)))
+        for src, dst, shift in convs:
+            seen.add((len(src), len(dst), shift is not None))
+            c = ctx._fbc_consts(src, dst)
+            pre, post = shift if shift is not None else ((None, None), (None, None))
+            for B in (1, 2, 16):
+                x = _rows(ctx, gen, (B,), src)
+                got = _launched("fbc", lambda: ctx._fbc(x, src, dst, shift))
+                assert torch.equal(got, fbc_plain(x, c, pre[0], post[0])), (src, dst, B)
+    with pytest.raises(ValueError, match="16-byte"):
+        ctx._fbc(_misaligned(x), src, dst, shift)
+    assert max(g for g, _, _ in seen) == ctx.S and len(seen) > ctx.Lq
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+@pytest.mark.parametrize("approach", [5, 2])
+def test_decompose_kernel_every_level(approach, n):
+    """K8 alone against decompose_coeff_plain and with its NTTs against
+    decompose_plain at every level l = 2..Lq of HyDia (5) and GROTE (2),
+    for B = 1 (targets split over more blocks) and 16, with and without a
+    per-row automorphism; a misaligned input raises."""
+    dev = _device()
+    ctx = _approach_ctx(dev, approach, n)
+    gen = torch.Generator(device=dev).manual_seed(40 + approach)
+    perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in range(1, 17)])).to(dev)
+    for l in range(2, ctx.Lq + 1):
+        for B in (1, 16):
+            coeff = _rows(ctx, gen, (B,), range(l))
+            want = tc.decompose_coeff_plain(ctx, coeff, l)
+            assert torch.equal(_launched("decompose", lambda: ctx._decompose_coeff(coeff, l)), want)
+            if l == ctx.Lq and B == 16:
+                with pytest.raises(ValueError, match="16-byte"):
+                    ctx._decompose_coeff(_misaligned(coeff), l)
+            poly = _rows(ctx, gen, (B,), range(l))
+            for p in (None, perms[:B]):
+                got = _launched("decompose", lambda: ctx._decompose_extended(poly, l, p))
+                assert torch.equal(got, tc.decompose_plain(ctx, poly, l, p)), (l, B, p is None)
+
+
+def test_k7_passes_alone_match_plain():
+    """K7's lift and sub-scale passes, each launched alone, against
+    rescale_lift_plain and sub_scale_plain (with a rotation's addend
+    gathered per row) at ring 32768."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    l = ctx.Lq
+    top = _rows(ctx, gen, (16, 2), (l - 1,))
+    got = _launched("rescale_lift", lambda: ctx._rescale_lift(top, l))
+    assert torch.equal(got, tc.rescale_lift_plain(ctx, top, l))
+    perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in range(1, 16)])).to(dev)
+    comp = _rows(ctx, gen, (15, 2), ctx.ext_limbs(l))
+    t = _rows(ctx, gen, (15, 2), range(l))
+    add = _rows(ctx, gen, (15, 1), range(l))
+    pinv = ctx._pinv(l)
+    got = _launched("sub_scale", lambda: ctx._sub_scale(comp, t, pinv[1], add, perms))
+    assert torch.equal(got, tc.sub_scale_plain(ctx, comp, t, pinv[0], add, perms))
+
+
 @pytest.mark.parametrize("n", [512, 32768])
 def test_tensor_and_decrypt_kernels_match_plain(n):
     """K9: products of operands at unequal levels (read in place), the
