@@ -28,7 +28,10 @@ line is printed):
      where build/ct_dot_prev/ holds one (utils/dot_bench.py); K3 and K8
      alone at the main path's shapes beside the earlier design's
      basis_convert.cu and decompose.cu where build/fbc_prev/ holds them
-     (utils/fbc_bench.py);
+     (utils/fbc_bench.py); K7's two passes and K11's two passes alone at
+     the streamed membership's most frequent shapes, beside the earlier
+     design's rescale.cu and modarith.cu where build/resid_prev/ holds
+     them, and one torch.add of int32 as a yardstick (utils/resid_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
@@ -309,6 +312,7 @@ def check_kernels(ctx, device):
     check_grote_width(device, gen, record)
     check_dot_bench(ctx)
     check_fbc_bench(ctx)
+    check_resid_bench(ctx)
     return rows
 
 
@@ -423,6 +427,26 @@ def check_fbc_bench(ctx):
             "this tree's kernels alone")
     for r in fbc_bench.measure(ctx, baseline):
         log("fbc_bench " + json.dumps(r))
+    free_device()
+
+
+def check_resid_bench(ctx):
+    """Phase 2, utils/resid_bench.py: K7's and K11's passes alone at the
+    main path's shapes, with the torch.add yardstick; with build/resid_prev/
+    (an earlier rescale.cu, modarith.cu and modmath.cuh), each beside that
+    design built alone, in turns."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import resid_bench
+
+    src = Path(__file__).resolve().parent / "build" / "resid_prev"
+    have = all((src / f).exists() for f in resid_bench.SOURCES)
+    baseline = resid_bench.build_baseline(src) if have else None
+    if baseline is None:
+        log(f"resid_bench: no earlier rescale.cu / modarith.cu / modmath.cuh in {src}: "
+            "this tree's kernels alone")
+    for r in resid_bench.measure(ctx, baseline):
+        log("resid_bench " + json.dumps(r))
     free_device()
 
 

@@ -500,7 +500,8 @@ class CkksContext:
         key = ("moduli", l)
         if key not in self._const_cache:
             q, rinv = self._qrow(self.q_limbs(l))
-            self._const_cache[key] = mm.Moduli(q, rinv, self.q32, self.qneg32)
+            self._const_cache[key] = mm.Moduli(q, rinv, self.q32, self.qneg32, self.r1_32,
+                                               self.r2_32)
         return self._const_cache[key]
 
     def _mont_const(self, value: int, limbs: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1093,10 +1094,12 @@ class CkksContext:
         lead, n = top.shape[:-2], self.n
         kernels.check_cuda("rescale_lift", top, self.q32, self.qneg32, self.r2_32)
         t = torch.empty((*lead, l - 1, n), dtype=torch.int32, device=top.device)
+        kernels.check_aligned("rescale_lift", t)
         kernels.launch("imtpu_rescale_lift", "rescale_lift", t, kernels.ptr(top),
                        int(self.all_primes[l - 1]), int(self.qneg_np[l - 1]),
                        kernels.ptr(self.q32), kernels.ptr(self.qneg32), kernels.ptr(self.r2_32),
                        math.prod(lead), l - 1, n)
+        kernels.note_shape("lift", math.prod(lead), l - 1, 0, "")
         return t
 
     def _sub_scale(self, x: torch.Tensor, t: torch.Tensor, cinv: torch.Tensor,
@@ -1134,10 +1137,12 @@ class CkksContext:
         elif perms is not None:
             raise ValueError("sub_scale: a permutation needs an addend")
         out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+        kernels.check_aligned("sub_scale", out)
         kernels.launch("imtpu_sub_scale", "sub_scale", out, kernels.ptr(xs),
                        x_bstride, kernels.ptr(t), kernels.ptr(cinv), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(add), add_r, add_c, add_k,
                        kernels.ptr(perms), perm_r, B, l, n)
+        kernels.note_shape("sub_scale", B, l, add_k, "gathered" if perms is not None else "")
         return out
 
     # ------------------------------------------------------------------

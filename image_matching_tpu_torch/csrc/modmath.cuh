@@ -8,6 +8,7 @@
 // R = 2^32, and every result is fully reduced, so the values are
 // bit-identical to the JAX package's.
 #pragma once
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 // a * b * R^{-1} mod q, for a < 2^32 and b < q (so a*b < R*q).
@@ -35,6 +36,28 @@ __device__ __forceinline__ uint32_t mod_add(uint32_t a, uint32_t b, uint32_t q) 
 
 __device__ __forceinline__ uint32_t mod_sub(uint32_t a, uint32_t b, uint32_t q) {
   return a >= b ? a - b : a + (q - b);
+}
+
+// V consecutive residues from / to p (V = 4: one 16-byte access, p on a
+// 16-byte boundary; V = 1: one 4-byte access), for the streaming passes
+// (K7, K11) that take V = 1 where an operand is not aligned.
+template <int V>
+__device__ __forceinline__ void ld_v(const uint32_t *p, uint32_t (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4 *>(p));
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void st_v(uint32_t *p, const uint32_t (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4 *>(p) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+    p[0] = x[0];
+  }
 }
 
 // Sum of products of residues below 2^31 (each below 2^62): a 64-bit lo

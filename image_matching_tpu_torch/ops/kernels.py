@@ -26,6 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Dict
 
 import torch
 
@@ -54,7 +55,7 @@ _ENTRIES = {
     "imtpu_pk_pre": "ppppppppiii",
     "imtpu_pk_mac": "ppppppiii",
     "imtpu_modarith": "ppipiiiiiiiipp",
-    "imtpu_mod_sum": "ppiiiiip",
+    "imtpu_mod_sum": "ppiiiiipppp",
     "imtpu_psum_mod": "ppiiiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
@@ -73,6 +74,14 @@ _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost
 _counts_lock = threading.Lock()
+# K7's and K11's launches by shape, filled only where those kernels launch
+# (no device sync): which shapes they have to serve.  Keys are (pass, B, l,
+# k, form): pass "lift", "sub_scale", "row_sum" or K11's op; B the [l, N]
+# blocks of the output; l its limbs; k the sub-scale's addend components,
+# K11's head (0: every component) or the row sum's R; form whether the
+# sub-scale's addend is gathered, or K11's operand b ("same", "plane",
+# "limb", or "" for neg)
+shape_hist: Dict[tuple, int] = {}
 
 _lib = None
 build_seconds = None  # wall time of the build in this process, if one ran
@@ -261,3 +270,9 @@ def count(counter: str):
     """Add one launch to ``counter`` (thread-safe)."""
     with _counts_lock:
         _counts[counter] += 1
+
+
+def note_shape(*key):
+    """Add one launch to ``shape_hist[key]`` (thread-safe)."""
+    with _counts_lock:
+        shape_hist[key] = shape_hist.get(key, 0) + 1

@@ -92,12 +92,15 @@ OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3}
 class Moduli:
     """The moduli of limbs 0..l-1: int64 [l, 1] ``q`` and ``rinv`` for the
     plain versions, and the context's int32 tables of every prime
-    (``q32``, ``qneg32``, indexed by limb) for K11."""
+    (``q32``, ``qneg32`` = -q^-1 mod 2^32, ``r1_32`` = R mod q, ``r2_32`` =
+    R^2 mod q, indexed by limb) for K11."""
 
     q: torch.Tensor
     rinv: torch.Tensor
     q32: torch.Tensor
     qneg32: torch.Tensor
+    r1_32: torch.Tensor
+    r2_32: torch.Tensor
 
 
 def residue_op_plain(op: str, a, b, q, rinv, head: Optional[int] = None):
@@ -113,21 +116,14 @@ def residue_op_plain(op: str, a, b, q, rinv, head: Optional[int] = None):
     return torch.cat([fn(a[..., :head, :, :]), a[..., head:, :, :].int()], dim=-3)
 
 
-def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = None):
-    """out = a + b, a - b, -a (b None) or the Montgomery product a * b * R^-1
-    mod q (op "add", "sub", "neg", "mul") over residues a [..., l, N] of
-    limbs 0..l-1.  b is a tensor of a's shape, an [l, N] plane broadcast
-    over a's leading axes (a plaintext), or a per-limb constant given as the
-    pair (int64 [l, 1], int32 [l]).  With ``head`` (a [..., k, l, N], any
-    leading batch axes), the op applies to the first ``head`` components
-    of every ciphertext, a[..., :head, :, :] (b then has that shape or
-    broadcasts), and the others pass through.  No element depends on
-    another ciphertext of the batch.  Kernel K11 for CUDA tensors, the
-    plain version for CPU tensors."""
-    if not a.is_cuda:
-        return residue_op_plain(op, a, b, m.q, m.rinv, head)
+def modarith_args(op: str, a: torch.Tensor, b, head: Optional[int] = None):
+    """What K11's elementwise pass is given for ``residue_op(op, a, b, m,
+    head)``, on any device: (a's storage, its block stride, b's storage,
+    its block stride, b's form 0 same shape / 1 plane / 2 per limb, the
+    components per ciphertext, the head, the [l, N] blocks, l, N).  a and
+    a same-shape b are read in place where one stride addresses them."""
     l, n = a.shape[-2], a.shape[-1]
-    if op not in OPS or l > m.q32.numel() or (head is not None and a.dim() < 3):
+    if head is not None and a.dim() < 3:
         raise ValueError(f"residue_op: {op} on {tuple(a.shape)} (head {head})")
     src, B, a_bstride = kernels.row_blocks(a)
     kcomp = 1 if head is None else a.shape[-3]
@@ -147,13 +143,36 @@ def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = Non
             if tuple(b.shape) != tuple(want):
                 raise ValueError(f"residue_op: operand {tuple(b.shape)} against {tuple(want)}")
             bt, _, b_bstride = kernels.row_blocks(b)
+    return src, a_bstride, bt, b_bstride, b_mode, kcomp, headk, B, l, n
+
+
+def residue_op(op: str, a: torch.Tensor, b, m: Moduli, head: Optional[int] = None):
+    """out = a + b, a - b, -a (b None) or the Montgomery product a * b * R^-1
+    mod q (op "add", "sub", "neg", "mul") over residues a [..., l, N] of
+    limbs 0..l-1.  b is a tensor of a's shape, an [l, N] plane broadcast
+    over a's leading axes (a plaintext), or a per-limb constant given as the
+    pair (int64 [l, 1], int32 [l]).  With ``head`` (a [..., k, l, N], any
+    leading batch axes), the op applies to the first ``head`` components
+    of every ciphertext, a[..., :head, :, :] (b then has that shape or
+    broadcasts), and the others pass through.  No element depends on
+    another ciphertext of the batch.  Kernel K11 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not a.is_cuda:
+        return residue_op_plain(op, a, b, m.q, m.rinv, head)
+    if op not in OPS or a.shape[-2] > m.q32.numel():
+        raise ValueError(f"residue_op: {op} on {tuple(a.shape)} (head {head})")
+    src, a_bstride, bt, b_bstride, b_mode, kcomp, headk, B, l, n = modarith_args(op, a, b, head)
+    if bt is not None:
         kernels.check_cuda("residue_op", bt, contiguous=b_mode != 0)
     kernels.check_cuda("residue_op", src, contiguous=False)
     kernels.check_cuda("residue_op", m.q32, m.qneg32)
     out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    kernels.check_aligned("residue_op", out)
     kernels.launch("imtpu_modarith", "modarith", out, kernels.ptr(src), a_bstride,
                    kernels.ptr(bt), b_bstride, b_mode, OPS[op], kcomp, headk, B, l, n,
                    kernels.ptr(m.q32), kernels.ptr(m.qneg32))
+    kernels.note_shape(op, B, l, 0 if head is None else headk,
+                       "" if op == "neg" else ("same", "plane", "limb")[b_mode])
     return out
 
 
@@ -168,7 +187,8 @@ def row_sum_plain(rows, q):
 def row_sum(rows: torch.Tensor, m: Moduli) -> torch.Tensor:
     """Sum over the leading axis of rows [R, ..., l, N] mod q -> [..., l, N]:
     K11's row-sum pass for CUDA tensors (64-bit sums reduced once: the same
-    canonical residues), the plain version for CPU tensors."""
+    canonical residues, reduced without a division), the plain version for
+    CPU tensors."""
     if not rows.is_cuda:
         return row_sum_plain(rows, m.q)
     l, n = rows.shape[-2], rows.shape[-1]
@@ -178,10 +198,13 @@ def row_sum(rows: torch.Tensor, m: Moduli) -> torch.Tensor:
         rows = rows.contiguous()
     R, B = rows.shape[0], rows[0].numel() // (l * n)
     kernels.check_cuda("row_sum", rows, contiguous=False)
-    kernels.check_cuda("row_sum", m.q32)
+    kernels.check_cuda("row_sum", m.q32, m.qneg32, m.r1_32, m.r2_32)
     out = torch.empty(rows.shape[1:], dtype=torch.int32, device=rows.device)
+    kernels.check_aligned("row_sum", out)
     kernels.launch("imtpu_mod_sum", "mod_sum", out, kernels.ptr(rows),
-                   rows.stride(0), R, B, l, n, kernels.ptr(m.q32))
+                   rows.stride(0), R, B, l, n, kernels.ptr(m.q32), kernels.ptr(m.qneg32),
+                   kernels.ptr(m.r1_32), kernels.ptr(m.r2_32))
+    kernels.note_shape("row_sum", B, l, R, "")
     return out
 
 

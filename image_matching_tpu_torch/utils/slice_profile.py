@@ -15,7 +15,8 @@ one membership of the sharded scenario over a mesh naming the card N
 times) and reports device kernel time, busy share (kernel time over the
 profiled wall time) and the time and launches of each hand-written kernel;
 before that, the launches of one membership by kernel and K1's launches by
-row count (``NttPlan.rows_hist``), and digests of the membership ciphertext
+row count (``NttPlan.rows_hist``), K7's and K11's launches by shape
+(``kernels.shape_hist``), and digests of the membership ciphertext
 and the index flags, which two trees that compute bit-equal results print
 alike.  Each profile also counts the memory copies by kind (a pageable
 host-to-device copy blocks the host until the stream drains).
@@ -102,14 +103,19 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
     say(f"membership decrypts to {receiver.decrypt_membership(out)}")
     flags = sender.run_index(qcts)
     say(f"sha256 of the membership ciphertext {_digest(out.data)}, of the index flags "
-        f"{_digest(torch.stack([f.data for f in flags]))} (equal across trees: bit-equal)")
+        f"{_digest(torch.cat([f.data.flatten() for f in flags]))} (equal across trees: "
+        "bit-equal)")
     hist = ctx.plan.rows_hist
     hist.clear()
+    kernels.shape_hist.clear()
     before = kernels.counts()
     timed({}, "membership_s", lambda: sender.run_membership(qcts))
     launched = {k: v - before[k] for k, v in kernels.counts().items() if v > before[k]}
     say(f"one membership: {sum(launched.values())} kernel launches {json.dumps(launched)}; "
         f"K1 launches by rows {json.dumps(dict(sorted(hist.items())))}")
+    shapes = sorted(kernels.shape_hist.items(), key=lambda kv: -kv[1])
+    say("one membership: K7 and K11 launches by (pass, B, l, k, form) "
+        + json.dumps([[list(k), v] for k, v in shapes]))
 
     profiled = [("membership", lambda: sender.run_membership(qcts)),
                 ("similarity", lambda: sender.compute_similarity(qcts))]

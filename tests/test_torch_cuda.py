@@ -568,6 +568,99 @@ def test_k7_passes_alone_match_plain():
     assert torch.equal(got, tc.sub_scale_plain(ctx, comp, t, pinv[0], add, perms))
 
 
+@pytest.mark.parametrize("l", [2, 14])
+def test_lift_kernel_levels_and_alignment(l):
+    """K7's lift pass alone at one limb out (l = 2) and at l = 14, over the
+    compare stack's 16 x 2 rows (limbs in one chunk) and one ciphertext
+    (limbs split over grid z), and from a misaligned top (V = 1)."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    assert ctx.Lq == 14
+    gen = torch.Generator(device=dev).manual_seed(51)
+    for shape in [(16, 2), (2,)]:
+        top = _rows(ctx, gen, shape, (l - 1,))
+        got = _launched("rescale_lift", lambda: ctx._rescale_lift(top, l))
+        assert torch.equal(got, tc.rescale_lift_plain(ctx, top, l)), shape
+    mis = _misaligned(top)
+    got = _launched("rescale_lift", lambda: ctx._rescale_lift(mis, l))
+    assert torch.equal(got, tc.rescale_lift_plain(ctx, mis, l))
+
+
+def test_sub_scale_kernel_forms():
+    """K7's sub-scale pass alone: a shared [1, N] permutation with a
+    broadcast [1, 1] addend, a broadcast [1, 2] addend, x a dropped-limb
+    view (a rescale's l + 1 of l + 3 limbs), one ciphertext (limbs split
+    over grid z), and a misaligned addend without (V = 1) and with a
+    permutation."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    gen = torch.Generator(device=dev).manual_seed(52)
+    l, R = ctx.Lq - 2, 4
+    ext = ctx.ext_limbs(l)
+    perms = torch.from_numpy(np.stack([ctx.plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in range(1, R + 1)])).to(dev)
+    comp = _rows(ctx, gen, (R, 2), ext)
+    t = _rows(ctx, gen, (R, 2), range(l))
+    pinv, qtinv = ctx._pinv(l), ctx._qtinv(l + 1)
+    big = _rows(ctx, gen, (R, 2), range(l + 3))
+    add1, add2 = _rows(ctx, gen, (1, 1), range(l)), _rows(ctx, gen, (1, 2), range(l))
+    mis = _misaligned(_rows(ctx, gen, (R, 1), range(l)))
+    cases = [(comp, pinv, add1, perms[:1]), (comp, pinv, add2, None),
+             (big[..., : l + 1, :], qtinv, None, None), (comp, pinv, mis, None),
+             (comp, pinv, mis, perms)]
+    for x, c, add, p in cases:
+        got = _launched("sub_scale", lambda: ctx._sub_scale(x, t, c[1], add, p))
+        assert torch.equal(got, tc.sub_scale_plain(ctx, x, t, c[0], add, p))
+    one, t1 = big[0, :, : l + 1, :], t[0]
+    got = _launched("sub_scale", lambda: ctx._sub_scale(one, t1, qtinv[1]))
+    assert torch.equal(got, tc.sub_scale_plain(ctx, one, t1, qtinv[0]))
+
+
+def test_modarith_kernel_forms_and_alignment():
+    """K11's elementwise pass over a [16, 2, l, N] stack: neg, sub,
+    add_scalar (head 1, component 1 copied through), a plane and a
+    per-limb operand, a dropped-limb view read in place and a transposed
+    view (copied), and a misaligned a or b (V = 1)."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    l = 11
+    m = ctx._mod(l)
+    big = _rows(ctx, gen, (16, 2), range(l + 2))
+    a = big[..., :l, :]
+    b = _rows(ctx, gen, (16, 2), range(l))
+    plane = _rows(ctx, gen, (), range(l))
+    const = ctx._mont_const(123456789, ctx.q_limbs(l))
+    cases = [("neg", a, None, None), ("sub", a, b, None), ("add", a, const, 1),
+             ("add", a, plane, None), ("mul", a, const, None), ("mul", a, plane, None),
+             ("add", a.transpose(0, 1), b.transpose(0, 1), None),
+             ("add", _misaligned(a), b, None), ("mul", a, _misaligned(b), None),
+             ("add", a, _misaligned(b[:, :1]), 1)]
+    for op, x, y, head in cases:
+        got = _launched("modarith", lambda: mm.residue_op(op, x, y, m, head=head))
+        yp = None if y is None else (tuple(v.cpu() for v in y) if isinstance(y, tuple)
+                                     else y.cpu())
+        want = mm.residue_op_plain(op, x.cpu(), yp, m.q.cpu(), m.rinv.cpu(), head)
+        assert torch.equal(got.cpu(), want), (op, tuple(x.shape), head)
+
+
+@pytest.mark.parametrize("R", [1, 15, 64, 128])
+def test_row_sum_kernel_rows(R):
+    """K11's row sum at R = 1, 15 (the giant steps), 64 (the flags, l = 2)
+    and 128, of random rows, of rows all q - 1, and of a misaligned stack
+    (V = 1)."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    gen = torch.Generator(device=dev).manual_seed(54)
+    l = 2 if R == 64 else ctx.Lq
+    m = ctx._mod(l)
+    rows = _rows(ctx, gen, (R, 2), range(l))
+    top = (m.q - 1).int().expand(R, 2, l, ctx.n).contiguous()
+    for x in (rows, top, _misaligned(rows)):
+        got = _launched("mod_sum", lambda: mm.row_sum(x, m))
+        assert torch.equal(got.cpu(), mm.row_sum_plain(x.cpu(), m.q.cpu()))
+
+
 @pytest.mark.parametrize("n", [512, 32768])
 def test_tensor_and_decrypt_kernels_match_plain(n):
     """K9: products of operands at unequal levels (read in place), the

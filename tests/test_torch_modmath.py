@@ -173,9 +173,9 @@ def test_launch_checks_reject_cpu_and_wrong_dtype():
 
 def _moduli():
     q, rinv = _tq()
-    return tmm.Moduli(q, rinv, tmm.to_tensor(np.array(PRIMES, dtype=np.uint32), "cpu"),
-                      tmm.to_tensor(np.array([jmm.host_mont_constants(p)[0] for p in PRIMES],
-                                             dtype=np.uint32), "cpu"))
+    consts = [jmm.host_mont_constants(p) for p in PRIMES]
+    return tmm.Moduli(q, rinv, *(tmm.to_tensor(np.array(col, dtype=np.uint32), "cpu")
+                                 for col in (PRIMES, *list(zip(*consts))[:3])))
 
 
 @pytest.mark.parametrize("form", ["same", "plane", "limb", "head"])
