@@ -32,6 +32,13 @@ line is printed):
      the streamed membership's most frequent shapes, beside the earlier
      design's rescale.cu and modarith.cu where build/resid_prev/ holds
      them, and one torch.add of int32 as a yardstick (utils/resid_bench.py);
+     K6's two passes on one group and K10's pre and MAC passes alone on
+     64, 128 and 1 ciphertexts of 14 limbs and 64 of GROTE's 21 (int32
+     noise), at utils/enc_bench.py's shapes and bounds, before the fused operation
+     at B = 512; where build/enc_prev/ holds an earlier seeded_encrypt.cu,
+     pk_encrypt.cu, threefry.cuh and modmath.cuh, K6's and K10's passes
+     alone beside that design in turns, K5 on K6's draws and K4 at one
+     membership's shapes (utils/enc_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
@@ -90,6 +97,8 @@ import time
 import numpy as np
 import torch
 
+from image_matching_tpu_torch.utils.benchkit import ADD, MUL, THREEFRY_OPS, bound, ntt_ops
+
 NVEC = 1 << 16          # in-memory HyDia and HERS
 NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
 NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
@@ -99,12 +108,7 @@ SEED = 0
 SEEDED_KERNELS = ("ct_dot_seeded", "seeded_pre", "seeded_c0")  # the streamed store's
 ENCRYPT_KERNELS = ("pk_pre", "pk_mac", "seeded_pre", "seeded_c0")  # setup, query encryption
 APPROACH = {1: "Baseline", 2: "GROTE", 3: "Blind-Match", 4: "HERS", 5: "HyDia"}
-HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM device memory
-INT_OPS_PER_S = 67e12      # 32-bit lanes outside the tensor cores (float32 peak)
-MUL, ADD = 6, 2            # 32-bit operations per modular product / add
 MAD = 2                    # a product added into a 64-bit sum (mad.wide.u32)
-UNIFORM_OPS = 20 * 4 + 4 * 6 + 2 * MUL  # a Threefry draw (20 rounds of add, rotate,
-# xor; key injections) and its two Montgomery products
 T0 = time.perf_counter()
 
 
@@ -127,17 +131,6 @@ def cuda_ms(fn, iters=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, ops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def ntt_ops(rows, n):
-    """Butterflies of `rows` transforms, a Shoup product and two adds each."""
-    return rows * n // 2 * (n.bit_length() - 1) * (MUL + 2 * ADD)
 
 
 def fbc_ops(rows, g, t, n):
@@ -206,8 +199,7 @@ def check_psum_mod(rows, l, device):
 
 def check_kernels(ctx, device):
     """Phase 2: each kernel against its plain version, bit-exact."""
-    from image_matching_tpu_torch.ckks.context import (fbc_plain, ks_mac_plain, seeded_c0_plain,
-                                                       seeded_pre_plain)
+    from image_matching_tpu_torch.ckks.context import fbc_plain, ks_mac_plain
     from image_matching_tpu_torch.matching.senders import ct_dot, ct_dot_plain
     from image_matching_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
     from image_matching_tpu_torch.ops.prng import uniform_residues_plain
@@ -287,25 +279,9 @@ def check_kernels(ctx, device):
            uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
            lambda: ctx.expand_c1(seed, grp, B, Lq),
            lambda: uniform_residues_plain(seed, grp, (B, Lq, n), ctx.q32, ctx.r1_32),
-           B * Lq * n * 4, B * Lq * n * UNIFORM_OPS)
+           B * Lq * n * 4, B * Lq * n * THREEFRY_OPS)
     check_seeded_dot(ctx, device, gen, record, rows)
-    hi, lo = (torch.from_numpy(a.view(np.int32)).to(device) for a in ctx.split_coeffs(
-        np.random.default_rng(5).integers(-(2 ** 40), 2 ** 40, size=(B, n))))
-    e = torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).int()
-    record("seeded_pre", label, ctx._seeded_pre(hi, lo, e, Lq),
-           seeded_pre_plain(ctx, hi, lo, e, Lq),
-           lambda: ctx._seeded_pre(hi, lo, e, Lq), lambda: seeded_pre_plain(ctx, hi, lo, e, Lq),
-           (3 * B * n + B * Lq * n) * 4, B * Lq * n * (2 * MUL + 3 * ADD))
-    x = ctx.plan.fwd(ctx._seeded_pre(hi, lo, e, Lq), ctx.q_limbs(Lq))
-    want = seeded_c0_plain(ctx, x, seed, grp)
-    # the kernel writes c0 over its input: compare its first call on a
-    # copy; the timed calls repeat the same work on that copy
-    xs = x.clone()
-    record("seeded_c0", label, ctx._seeded_c0(xs, seed, grp), want,
-           lambda: ctx._seeded_c0(xs, seed, grp),
-           lambda: seeded_c0_plain(ctx, x, seed, grp),
-           (2 * B * Lq * n + Lq * n) * 4, B * Lq * n * (UNIFORM_OPS + MUL + ADD))
-    del x, xs, want, hi, lo, e
+    check_enc_passes(ctx, gen, record)
     check_alone(ctx, device, gen, record)
     check_fused(ctx, device, gen, record, rows)
     check_residue_ops(ctx, device, gen, record)
@@ -313,7 +289,50 @@ def check_kernels(ctx, device):
     check_dot_bench(ctx)
     check_fbc_bench(ctx)
     check_resid_bench(ctx)
+    check_enc_bench(ctx)
     return rows
+
+
+def check_enc_passes(ctx, gen, record):
+    """Phase 2, the encryption passes each launched alone, without the K1
+    launch between them, at enc_bench's shapes and bounds: K6's pre and c0
+    passes on one streamed group [512, l, N] (seed and group >= 2^31), then
+    K10's pre and MAC passes on B = 64, 128 and 1 ciphertexts at ctx's top
+    level (the in-memory enrollment's chunks, a chunk of the HERS query, a
+    HyDia query; GROTE's l = 21 in check_grote_width), int32 noise."""
+    from image_matching_tpu_torch.utils import enc_bench
+
+    record_cases(record, ("seeded_pre", "seeded_c0"), enc_bench.seeded_cases(ctx, None, gen, DIM))
+    free_device()
+    for B in (64, 128, 1):
+        record_cases(record, ("pk_pre", "pk_mac"), enc_bench.pk_cases(ctx, None, gen, B))
+        free_device()
+
+
+def record_cases(record, names, cases):
+    """Record enc_bench's (label, kernel, baseline, plain, bytes,
+    operations) cases under the kernel names, one each in turn."""
+    for name, (label, new, _, want, nbytes, ops) in zip(names, cases):
+        record(name, label, new(), want(), new, want, nbytes, ops)
+
+
+def check_enc_bench(ctx):
+    """Phase 2, utils/enc_bench.py where build/enc_prev/ holds an earlier
+    seeded_encrypt.cu, pk_encrypt.cu, threefry.cuh and modmath.cuh: K6's
+    and K10's passes alone and K10 fused beside that design built alone,
+    in turns; K5 on K6's draws; K4 at one membership's shapes."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import enc_bench
+
+    src = Path(__file__).resolve().parent / "build" / "enc_prev"
+    if not all((src / f).exists() for f in enc_bench.SOURCES):
+        log(f"enc_bench: no earlier seeded_encrypt.cu / pk_encrypt.cu / threefry.cuh / "
+            f"modmath.cuh in {src}: not run")
+        return
+    for r in enc_bench.measure(ctx, baseline=enc_bench.build_baseline(src)):
+        log("enc_bench " + json.dumps(r))
+    free_device()
 
 
 def ct_dot_work(K, blocks, l, n, LA=None, seeded=False):
@@ -326,7 +345,7 @@ def ct_dot_work(K, blocks, l, n, LA=None, seeded=False):
     b_words = blocks * K * (1 if seeded else 2) * l * n
     ops = blocks * l * n * (4 * K * MAD + 3 * (3 * MUL + 2 * ADD))
     if seeded:
-        ops += blocks * K * l * n * UNIFORM_OPS
+        ops += blocks * K * l * n * THREEFRY_OPS
     return (K * 2 * LA * n + b_words + blocks * 3 * l * n) * 4, ops
 
 
@@ -575,20 +594,20 @@ def check_fused(ctx, device, gen, record, rows):
            lambda: ctx._decrypt_impl(d), lambda: tc.decrypt_plain(ctx, d),
            5 * Lq * n * 4, Lq * n * (4 * MUL + 2 * ADD) + ntt_ops(Lq, n))
     del x, y, d
-    # K10: public-key encryption of the HERS query, B = 512 (pre, K1, MAC)
+    # K10: public-key encryption of the HERS query, B = 512 (pre, K1, MAC;
+    # its passes alone in check_pk_passes)
     B = DIM
     m = rand_residues((B, Lq, n), qp, gen, device)
-    v = torch.randint(-1, 2, (B, n), generator=gen, device=device)
-    e0, e1 = (torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).long()
+    v = torch.randint(-1, 2, (B, n), generator=gen, device=device).int()
+    e0, e1 = (torch.round(torch.randn((B, n), generator=gen, device=device) * 3.19).int()
               for _ in range(2))
     want = tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq)
     torch.cuda.empty_cache()
-    record("pk_pre", f"encrypt B={B}x14 limbs", ctx._encrypt_impl(m, v, e0, e1, Lq), want,
-           lambda: ctx._encrypt_impl(m, v, e0, e1, Lq),
+    record("pk_pre", f"encrypt B={B}x14 limbs (pre, K1, MAC)", ctx._encrypt_impl(m, v, e0, e1, Lq),
+           want, lambda: ctx._encrypt_impl(m, v, e0, e1, Lq),
            lambda: tc.pk_encrypt_plain(ctx, m, v, e0, e1, Lq),
-           (B * Lq * n * 4 + 3 * B * n * 8 + 2 * Lq * n * 4 + B * 2 * Lq * n * 4),
-           B * Lq * n * (4 * MUL + 2 * MUL + 3 * ADD) + ntt_ops(3 * B * Lq, n))
-    rows["pk_mac"] = dict(rows["pk_pre"])  # one operation, two passes
+           (B * Lq * n * 4 + 3 * B * n * 4 + 2 * Lq * n * 4 + B * 2 * Lq * n * 4),
+           B * Lq * n * (4 * MUL + 6 * ADD) + ntt_ops(3 * B * Lq, n))
     del m, v, e0, e1, want
     torch.cuda.empty_cache()
 
@@ -629,11 +648,13 @@ def check_residue_ops(ctx, device, gen, record):
 def check_grote_width(device, gen, record):
     """Phase 2 at GROTE's width (depth 18: 21 q limbs, 8 special, the widest
     parameter set): the mod-down's conversion from 8 special limbs (K3's
-    limit) and the decomposition into 29 extended limbs, at l = 21."""
+    limit) and the decomposition into 29 extended limbs, at l = 21; K10's
+    passes alone on an enrollment chunk of 64 ciphertexts of 21 limbs."""
     from image_matching_tpu_torch.ckks import context as tc
     from image_matching_tpu_torch.ckks.context import CkksContext
     from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
     from image_matching_tpu_torch.matching.config import MatchConfig
+    from image_matching_tpu_torch.utils import enc_bench
 
     cfg = MatchConfig()
     ctx = CkksContext(SchemeParams.create(
@@ -654,7 +675,9 @@ def check_grote_width(device, gen, record):
            tc.decompose_plain(ctx, poly, Lq), lambda: ctx._decompose_extended(poly, Lq),
            lambda: tc.decompose_plain(ctx, poly, Lq), (poly.numel() + ctx.dnum * E * n) * 4,
            ntt_ops(Lq + ctx.dnum * E, n))
-    del ctx, comp, a, poly
+    del comp, a, poly
+    record_cases(record, ("pk_pre", "pk_mac"), enc_bench.pk_cases(ctx, None, gen, 64, " (GROTE)"))
+    del ctx
     torch.cuda.empty_cache()
 
 

@@ -368,6 +368,28 @@ def pk_encrypt_plain(ctx: "CkksContext", m_rns: torch.Tensor, v: torch.Tensor,
     return torch.stack([c0, c1], dim=-3)
 
 
+def pk_pre_plain(ctx: "CkksContext", m_rns: torch.Tensor, v: torch.Tensor,
+                 e0: torch.Tensor, e1: torch.Tensor, l: int) -> torch.Tensor:
+    """K10's pre pass alone: standard-form message residues [B, l, N] and
+    small signed noise [B, N] -> Montgomery residues of (m + e0, v, e1),
+    int32 [3, B, l, N]."""
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
+    small = torch.stack([v, e0, e1]).long()[:, :, None, :]  # [3, B, 1, n]
+    vv, ee0, ee1 = torch.where(small < 0, q + small, small)  # [B, l, n] each
+    x = torch.stack([mm.mod_add(m_rns, ee0, q).long(), vv, ee1])
+    return mm.mont_mul(x, ctx.r2_64[:l, None], q, rinv)
+
+
+def pk_mac_plain(ctx: "CkksContext", x: torch.Tensor, l: int) -> torch.Tensor:
+    """K10's MAC pass alone: the evaluation form of the pre pass [3, B, l,
+    N] -> c0 = pk_b V + X, c1 = pk_a V + E1, int32 [B, 2, l, N]."""
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
+    X, V, E1 = x.long()
+    c0 = mm.mod_add(mm.mont_mul(ctx.pk_b[:l], V, q, rinv), X, q)
+    c1 = mm.mod_add(mm.mont_mul(ctx.pk_a[:l], V, q, rinv), E1, q)
+    return torch.stack([c0, c1], dim=-3)
+
+
 class CkksContext:
     """Scheme context + evaluator.  One instance per parameter set, with
     its tables and keys on ``device``: the card (``"cuda"``) unless the
@@ -407,10 +429,12 @@ class CkksContext:
         self.rinv64 = torch.tensor([mm.host_rinv(q) for q in self.all_primes],
                                    dtype=torch.int64, device=dev)
         self.r2_64 = torch.tensor(self.r2_np.astype(np.int64), device=dev)
-        # seeded encryption (K5, K6): R and R^2 mod q, 2^56 mod q (the hi
-        # half's weight times R) and the split offset mod q
+        # seeded encryption (K5, K6): R, R^2 and R^3 mod q, 2^56 mod q (the
+        # hi half's weight times R) and the split offset mod q
         self.r1_32 = mm.to_tensor(np.array([c[1] for c in consts], dtype=np.uint32), dev)
         self.r2_32 = mm.to_tensor(self.r2_np, dev)
+        self.r3_32 = mm.to_tensor(np.array([pow(2, 96, q) for q in self.all_primes],
+                                           dtype=np.uint32), dev)
         self.c24_32 = mm.to_tensor(np.array(
             [(1 << (self._SPLIT_BITS + 32)) % q for q in self.all_primes], dtype=np.uint32), dev)
         self.offm_32 = mm.to_tensor(np.array(
@@ -721,17 +745,19 @@ class CkksContext:
         return self._pt_cache[ck]
 
     def _fresh_noise(self, seed: int, batch: int):
-        """(v, e0, e1) int64 [batch, n] on the device: ternary v and rounded
-        gaussians, from ``self.noise`` or a torch.Generator seeded by seed."""
+        """(v, e0, e1) int32 [batch, n] on the device, as the JAX package
+        draws them: ternary v and rounded gaussians, from ``self.noise``
+        (cast to int32: values below 2^31 in magnitude are unchanged) or a
+        torch.Generator seeded by seed (the same draws as an int64 one)."""
         if self.noise is not None:
-            return tuple(torch.as_tensor(np.array(x), dtype=torch.int64).to(self.device)
+            return tuple(torch.as_tensor(np.asarray(x).astype(np.int32)).to(self.device)
                          for x in self.noise(seed, batch, self.n))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         shape = (batch, self.n)
-        v = torch.randint(-1, 2, shape, generator=gen, device=self.device)
+        v = torch.randint(-1, 2, shape, generator=gen, device=self.device).int()
         e = [torch.round(torch.randn(shape, generator=gen, device=self.device,
-                                     dtype=torch.float32) * self.params.sigma).long()
+                                     dtype=torch.float32) * self.params.sigma).int()
              for _ in range(2)]
         return v, e[0], e[1]
 
@@ -757,7 +783,7 @@ class CkksContext:
     def _encrypt_impl(self, m_rns: torch.Tensor, v: torch.Tensor, e0: torch.Tensor,
                       e1: torch.Tensor, l: int) -> torch.Tensor:
         """Public-key encryption, [B, l, N] standard residues and [B, N]
-        int64 noise -> [B, 2, l, N]: K10's pre pass, K1, K10's MAC pass on
+        int32 noise -> [B, 2, l, N]: K10's pre pass, K1, K10's MAC pass on
         CUDA (in chunks of ``_PK_CHUNK`` ciphertexts, one noise draw for the
         whole batch), ``pk_encrypt_plain`` on the CPU."""
         if not m_rns.is_cuda:
@@ -766,25 +792,57 @@ class CkksContext:
         if m_rns.shape != (B, l, n) or any(t.shape != (B, n) for t in (v, e0, e1)):
             raise ValueError(f"encrypt: message {tuple(m_rns.shape)} and noise "
                              f"{tuple(v.shape)} for l={l}, N={n}")
-        m_rns, v, e0, e1 = (t.contiguous() for t in (m_rns, v, e0, e1))
-        kernels.check_cuda("pk_encrypt", m_rns, self.pk_b, self.pk_a, self.q32, self.qneg32,
-                           self.r2_32)
-        kernels.check_cuda("pk_encrypt", v, e0, e1, dtype=torch.int64)
-        if v.device != m_rns.device:
-            raise ValueError("pk_encrypt: message and noise on different devices")
         lim = self.q_limbs(l)
         out = torch.empty((B, 2, l, n), dtype=torch.int32, device=m_rns.device)
         for i in range(0, B, self._PK_CHUNK):
-            b = min(self._PK_CHUNK, B - i)
-            x = torch.empty((3, b, l, n), dtype=torch.int32, device=m_rns.device)
-            kernels.launch("imtpu_pk_pre", "pk_pre", x, kernels.ptr(m_rns[i]),
-                           kernels.ptr(v[i]), kernels.ptr(e0[i]), kernels.ptr(e1[i]),
-                           kernels.ptr(self.q32), kernels.ptr(self.qneg32),
-                           kernels.ptr(self.r2_32), b, l, n)
-            x = self.plan.fwd(x, lim)
-            kernels.launch("imtpu_pk_mac", "pk_mac", out[i], kernels.ptr(x),
-                           kernels.ptr(self.pk_b), kernels.ptr(self.pk_a),
-                           kernels.ptr(self.q32), kernels.ptr(self.qneg32), b, l, n)
+            j = min(B, i + self._PK_CHUNK)
+            x = self.plan.fwd(self._pk_pre(m_rns[i:j], v[i:j], e0[i:j], e1[i:j], l), lim)
+            self._pk_mac(x, l, out=out[i:j])
+        return out
+
+    def _pk_pre(self, m_rns: torch.Tensor, v: torch.Tensor, e0: torch.Tensor,
+                e1: torch.Tensor, l: int) -> torch.Tensor:
+        """K10's pre pass alone on CUDA (``pk_pre_plain`` on the CPU):
+        [B, l, N] standard residues and [B, N] int32 noise -> [3, B, l, N]
+        Montgomery residues of (m + e0, v, e1)."""
+        if not m_rns.is_cuda:
+            return pk_pre_plain(self, m_rns, v, e0, e1, l)
+        m_rns, v, e0, e1 = (t.contiguous() for t in (m_rns, v, e0, e1))
+        B, n = m_rns.shape[0], self.n
+        if m_rns.shape != (B, l, n) or any(t.shape != (B, n) for t in (v, e0, e1)):
+            raise ValueError(f"pk_pre: message {tuple(m_rns.shape)} and noise "
+                             f"{tuple(v.shape)} for l={l}, N={n}")
+        kernels.check_cuda("pk_pre", m_rns, v, e0, e1, self.q32, self.qneg32, self.r1_32,
+                           self.r2_32)
+        out = torch.empty((3, B, l, n), dtype=torch.int32, device=m_rns.device)
+        kernels.launch("imtpu_pk_pre", "pk_pre", out, kernels.ptr(m_rns), kernels.ptr(v),
+                       kernels.ptr(e0), kernels.ptr(e1), kernels.ptr(self.q32),
+                       kernels.ptr(self.qneg32), kernels.ptr(self.r1_32),
+                       kernels.ptr(self.r2_32), B, l, n)
+        kernels.note_shape("pk_pre", B, l, 0, "")
+        return out
+
+    def _pk_mac(self, x: torch.Tensor, l: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """K10's MAC pass alone on CUDA (``pk_mac_plain`` on the CPU): the
+        evaluation form [3, B, l, N] of the pre pass -> [B, 2, l, N]
+        (written into ``out``, a contiguous tensor, when given)."""
+        if not x.is_cuda:
+            r = pk_mac_plain(self, x, l)
+            return r if out is None else out.copy_(r)
+        x = x.contiguous()
+        B, n = x.shape[1], self.n
+        if x.shape != (3, B, l, n):
+            raise ValueError(f"pk_mac: data {tuple(x.shape)} for l={l}, N={n}")
+        if out is None:
+            out = torch.empty((B, 2, l, n), dtype=torch.int32, device=x.device)
+        elif out.shape != (B, 2, l, n):
+            raise ValueError(f"pk_mac: output {tuple(out.shape)} for data {tuple(x.shape)}")
+        kernels.check_cuda("pk_mac", out, x, self.pk_b, self.pk_a, self.q32, self.qneg32)
+        kernels.launch("imtpu_pk_mac", "pk_mac", out, kernels.ptr(x), kernels.ptr(self.pk_b),
+                       kernels.ptr(self.pk_a), kernels.ptr(self.q32), kernels.ptr(self.qneg32),
+                       B, l, n)
+        kernels.note_shape("pk_mac", B, l, 0, "")
         return out
 
     def encrypt(self, values: np.ndarray, limbs: Optional[int] = None,
@@ -864,16 +922,17 @@ class CkksContext:
             return seeded_pre_plain(self, hi, lo, e, l)
         hi, lo, e = hi.contiguous(), lo.contiguous(), e.contiguous()
         B, n = hi.shape
-        if lo.shape != hi.shape or e.shape != hi.shape or n != self.n or B > 65535:
+        if lo.shape != hi.shape or e.shape != hi.shape or n != self.n:
             raise ValueError(f"seeded_pre: shapes {tuple(hi.shape)}, {tuple(lo.shape)}, "
                              f"{tuple(e.shape)} for N={self.n}")
         kernels.check_cuda("seeded_pre", hi, lo, e, self.q32, self.qneg32, self.r2_32,
-                           self.c24_32, self.offm_32)
+                           self.r3_32)
         out = torch.empty((B, l, n), dtype=torch.int32, device=hi.device)
         kernels.launch("imtpu_seeded_pre", "seeded_pre", out, kernels.ptr(hi),
                        kernels.ptr(lo), kernels.ptr(e), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r2_32),
-                       kernels.ptr(self.c24_32), kernels.ptr(self.offm_32), B, l, n)
+                       kernels.ptr(self.r3_32), B, l, n)
+        kernels.note_shape("seeded_pre", B, l, 0, "")
         return out
 
     def _seeded_c0(self, x: torch.Tensor, seed: int, group: int) -> torch.Tensor:
@@ -882,7 +941,7 @@ class CkksContext:
         if not x.is_cuda:
             return seeded_c0_plain(self, x, seed, group)
         B, l, n = x.shape
-        if n != self.n or B > 65535:
+        if n != self.n:
             raise ValueError(f"seeded_c0: data {tuple(x.shape)} for N={self.n}")
         kernels.check_cuda("seeded_c0", x, self.s_eval, self.q32, self.qneg32, self.r1_32,
                            self.r2_32)
@@ -890,6 +949,7 @@ class CkksContext:
                        kernels.ptr(self.s_eval), kernels.ptr(self.q32),
                        kernels.ptr(self.qneg32), kernels.ptr(self.r1_32),
                        kernels.ptr(self.r2_32), seed & prng.M32, group & prng.M32, B, l, n)
+        kernels.note_shape("seeded_c0", B, l, 0, "")
         return x
 
     def encrypt_seeded(self, hi: torch.Tensor, lo: torch.Tensor, e: torch.Tensor,
@@ -1308,6 +1368,7 @@ class CkksContext:
             0 if d_shared else ndig * E * n, kernels.ptr(perms), kernels.ptr(ksk),
             0 if k_shared else ksk[0].numel(), Rn, ndig, E, l, self.Lq, self.Ltot, n,
             kernels.ptr(self.q32), kernels.ptr(self.qneg32))
+        kernels.note_shape("ks_mac", Rn, E, ndig, (k_shared, d_shared, perms is not None))
         return out
 
     def _keyswitch_batch(self, digs, ksk, l: int, perms=None, add=None,

@@ -27,6 +27,7 @@
 #include <stdint.h>
 
 #include "modmath.cuh"
+#include "passgrid.cuh"
 
 #define FBC_MAXG 8
 #define FBC_MAXT 32
@@ -37,9 +38,6 @@
 #define FBC_SMEM (FBC_TW * FBC_MAXT + 4 * FBC_MAXG)
 #define FBC_THREADS 128
 #define FBC_V 4  // coefficients a thread: one 16-byte load or store per row
-// blocks a launch aims for before it splits the targets over more blocks:
-// four for each of the H100's 132 SMs
-#define FBC_MIN_BLOCKS 528
 
 // (s + m p) / 2^32 with m = -s p^-1 mod 2^32, for any s < 2^64, without
 // the 65-bit sum: the low words of s and m p add to 0 or 2^32.
@@ -128,9 +126,10 @@ __device__ __forceinline__ void fbc_stage(uint32_t *cs, const uint32_t *consts,
 }
 
 // Targets per block and target chunks of a launch of `blocks` blocks over
-// t targets: split the targets only when the launch would leave SMs idle.
+// t targets: split the targets only when the launch would leave SMs idle
+// (fewer than PASS_MIN_BLOCKS blocks).
 static inline void fbc_split(long long blocks, int t, int *per, int *chunks) {
-  long long s = (FBC_MIN_BLOCKS + blocks - 1) / blocks;
+  long long s = (PASS_MIN_BLOCKS + blocks - 1) / blocks;
   if (s < 1) s = 1;
   if (s > t) s = t;
   *per = (int)((t + s - 1) / s);

@@ -44,6 +44,7 @@
 #include <stdint.h>
 
 #include "modmath.cuh"
+#include "passgrid.cuh"
 
 #define K11_THREADS 128
 #define K11_SUM_WARPS (K11_THREADS / 32)
@@ -174,8 +175,6 @@ __global__ void __launch_bounds__(K11_THREADS)
     __syncthreads();  // part is reused by the next block row
   }
 }
-
-static bool aligned16(const void *p) { return ((uintptr_t)p & 15u) == 0; }
 
 static int log2_exact(int64_t x) {  // -1 unless x is a power of two
   if (x < 1 || (x & (x - 1)) != 0) return -1;

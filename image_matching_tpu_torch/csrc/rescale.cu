@@ -34,16 +34,14 @@
 // strided parent (the first l limbs of an l + 1 or l + S limb tensor), so
 // no slice is copied.  Offsets inside a row are 32-bit.  A launch of few
 // rows (one ciphertext) splits the limbs over blockIdx.z until it has
-// K7_MIN_BLOCKS blocks.  An operand that is not 16-byte aligned (or a
-// stride that is not a multiple of four) takes V = 1 in the same kernel.
+// PASS_MIN_BLOCKS blocks (passgrid.cuh's limb_split_grid, the grid of K6's
+// and K10's pre passes too).  An operand that is not 16-byte aligned (or
+// a stride that is not a multiple of four) takes V = 1 in the same kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "modmath.cuh"
-
-#define K7_THREADS 128
-#define K7_MIN_BLOCKS 528  // four blocks for each of the H100's 132 SMs
-#define K7_MAX_GRID_Y 65535
+#include "passgrid.cuh"
 
 __device__ __forceinline__ uint32_t lift_one(uint32_t s, bool neg, uint32_t q,
                                              uint32_t qn, uint32_t r2) {
@@ -54,14 +52,14 @@ __device__ __forceinline__ uint32_t lift_one(uint32_t s, bool neg, uint32_t q,
 
 // One thread: coefficients k..k+V-1 of rows b, limbs [i0, i1).
 template <int V>
-__global__ void __launch_bounds__(K7_THREADS)
+__global__ void __launch_bounds__(PASS_THREADS)
     rescale_lift_kernel(uint32_t *__restrict__ out,
                         const uint32_t *__restrict__ top, uint32_t qt,
                         uint32_t qt_neg, const uint32_t *__restrict__ qs,
                         const uint32_t *__restrict__ qneg,
                         const uint32_t *__restrict__ r2, int B, int l, int n,
                         int per) {
-  const int k = (blockIdx.x * K7_THREADS + threadIdx.x) * V;
+  const int k = (blockIdx.x * PASS_THREADS + threadIdx.x) * V;
   if (k >= n) return;
   const int i0 = blockIdx.z * per;
   const int i1 = min(l, i0 + per);
@@ -137,8 +135,8 @@ __device__ __forceinline__ void sub_limbs(const SubArgs &p,
 // One thread: coefficients k..k+V-1 of rows b = (r, comp) = (b / 2,
 // b % 2), limbs [i0, i1).
 template <int V, bool GATHER>
-__global__ void __launch_bounds__(K7_THREADS) sub_scale_kernel(SubArgs p) {
-  const int k = (blockIdx.x * K7_THREADS + threadIdx.x) * V;
+__global__ void __launch_bounds__(PASS_THREADS) sub_scale_kernel(SubArgs p) {
+  const int k = (blockIdx.x * PASS_THREADS + threadIdx.x) * V;
   if (k >= p.n) return;
   const int i0 = blockIdx.z * p.per;
   const int i1 = min(p.l, i0 + p.per);
@@ -170,21 +168,6 @@ __global__ void __launch_bounds__(K7_THREADS) sub_scale_kernel(SubArgs p) {
   }
 }
 
-// The grid of a pass over B rows of n coefficients and l limbs: the
-// coefficients over x (V a thread), the rows over y, and the limbs split
-// over z into chunks of `per` until the launch has K7_MIN_BLOCKS blocks.
-static dim3 k7_grid(int64_t B, int64_t l, int64_t n, int V, int *per) {
-  const int64_t bx = (n / V + K7_THREADS - 1) / K7_THREADS;
-  const int64_t by = B < K7_MAX_GRID_Y ? B : K7_MAX_GRID_Y;
-  int64_t chunks = (K7_MIN_BLOCKS + bx * by - 1) / (bx * by);
-  if (chunks > l) chunks = l;
-  if (chunks < 1) chunks = 1;
-  *per = (int)((l + chunks - 1) / chunks);
-  return dim3((unsigned)bx, (unsigned)by, (unsigned)((l + *per - 1) / *per));
-}
-
-static bool aligned16(const void *p) { return ((uintptr_t)p & 15u) == 0; }
-
 // top: [B, n] coefficient-domain Montgomery residues mod qt (the inverse
 // NTT of the top limb); out: [B, l, n] Montgomery residues of the centred
 // top over limbs 0..l-1 (qs, qneg, r2 = R^2 mod q indexed by limb).
@@ -196,14 +179,14 @@ extern "C" int imtpu_rescale_lift(void *out, const void *top, int64_t qt,
   if (l * n >= (int64_t)1 << 31) return (int)cudaErrorInvalidValue;
   const bool vec = n % 4 == 0 && aligned16(out) && aligned16(top);
   int per;
-  const dim3 grid = k7_grid(B, l, n, vec ? 4 : 1, &per);
+  const dim3 grid = limb_split_grid(B, l, n, vec ? 4 : 1, &per);
   if (vec)
-    rescale_lift_kernel<4><<<grid, K7_THREADS, 0, (cudaStream_t)stream>>>(
+    rescale_lift_kernel<4><<<grid, PASS_THREADS, 0, (cudaStream_t)stream>>>(
         (uint32_t *)out, (const uint32_t *)top, (uint32_t)qt, (uint32_t)qt_neg,
         (const uint32_t *)qs, (const uint32_t *)qneg, (const uint32_t *)r2,
         (int)B, (int)l, (int)n, per);
   else
-    rescale_lift_kernel<1><<<grid, K7_THREADS, 0, (cudaStream_t)stream>>>(
+    rescale_lift_kernel<1><<<grid, PASS_THREADS, 0, (cudaStream_t)stream>>>(
         (uint32_t *)out, (const uint32_t *)top, (uint32_t)qt, (uint32_t)qt_neg,
         (const uint32_t *)qs, (const uint32_t *)qneg, (const uint32_t *)r2,
         (int)B, (int)l, (int)n, per);
@@ -213,9 +196,9 @@ extern "C" int imtpu_rescale_lift(void *out, const void *top, int64_t qt,
 template <int V>
 static void launch_sub_scale(const SubArgs &p, dim3 grid, cudaStream_t s) {
   if (p.perms != nullptr)
-    sub_scale_kernel<V, true><<<grid, K7_THREADS, 0, s>>>(p);
+    sub_scale_kernel<V, true><<<grid, PASS_THREADS, 0, s>>>(p);
   else
-    sub_scale_kernel<V, false><<<grid, K7_THREADS, 0, s>>>(p);
+    sub_scale_kernel<V, false><<<grid, PASS_THREADS, 0, s>>>(p);
 }
 
 // out, t: [B, l, n]; x: B blocks of l rows, block b at x + b * x_bstride;
@@ -249,7 +232,7 @@ extern "C" int imtpu_sub_scale(void *out, const void *x, int64_t x_bstride,
        (aligned16(add) && add_rstride % 4 == 0 && add_cstride % 4 == 0)) &&
       (perms == nullptr || (aligned16(perms) && perm_rstride % 4 == 0));
   SubArgs q = p;
-  const dim3 grid = k7_grid(B, l, n, vec ? 4 : 1, &q.per);
+  const dim3 grid = limb_split_grid(B, l, n, vec ? 4 : 1, &q.per);
   if (vec)
     launch_sub_scale<4>(q, grid, (cudaStream_t)stream);
   else

@@ -1,6 +1,6 @@
 // Threefry-2x32-20 and the uniform residue it draws, shared by K5
-// (prng.cu), K6 (seeded_encrypt.cu) and the seeded contraction
-// (ct_dot.cu, with the key schedule computed once per thread).
+// (prng.cu), K6 (seeded_encrypt.cu, with the key schedule computed once
+// per launch) and the seeded contraction (ct_dot.cu, once per thread).
 //
 // Bit-exact with image_matching_tpu/ops/prng.py threefry2x32 (:32) and
 // uniform_residues (:51), and with the host enroller's tf2x32
@@ -12,7 +12,7 @@
 
 #include "modmath.cuh"
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+__host__ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
@@ -53,14 +53,15 @@ __device__ __forceinline__ uint32_t uniform_residue(uint32_t seed,
 
 // The key schedule of threefry2x32 for one key (k0, k1), computed once for
 // many counters (idx, 0): the first round's key-only terms and the five
-// key injections.
+// key injections.  Also callable on the host, to pass a launch its key by
+// value (K6's c0 pass).
 struct ThreefryKey {
   uint32_t k01;                // k0 + k1: x0 after the first add, less idx
   uint32_t rk1;                // rotl(k1, 13): x1 after the first rotation
   uint32_t inj0[5], inj1[5];  // ks[i % 3] and ks[(i + 1) % 3] + i + 1
 };
 
-__device__ __forceinline__ ThreefryKey threefry_key(uint32_t k0, uint32_t k1) {
+__host__ __device__ __forceinline__ ThreefryKey threefry_key(uint32_t k0, uint32_t k1) {
   const uint32_t ks[3] = {k1, k0 ^ k1 ^ 0x1BD11BDAu, k0};
   ThreefryKey key;
   key.k01 = k0 + k1;

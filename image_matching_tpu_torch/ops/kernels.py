@@ -45,14 +45,14 @@ _ENTRIES = {
     "imtpu_fbc": "pppppiiii",
     "imtpu_ks_mac": "ppippiiiiiiiipp",
     "imtpu_expand_c1": "pppppiiiiii",
-    "imtpu_seeded_pre": "pppppppppiii",
+    "imtpu_seeded_pre": "ppppppppiii",
     "imtpu_seeded_c0": "pppppppiiiii",
     "imtpu_rescale_lift": "ppiipppiii",
     "imtpu_sub_scale": "ppipppppiiipiiii",
     "imtpu_decompose": "ppippiiii",
     "imtpu_tensor": "ppiipiiippiii",
     "imtpu_decrypt_mac": "ppiiipppiii",
-    "imtpu_pk_pre": "ppppppppiii",
+    "imtpu_pk_pre": "pppppppppiii",
     "imtpu_pk_mac": "ppppppiii",
     "imtpu_modarith": "ppipiiiiiiiipp",
     "imtpu_mod_sum": "ppiiiiipppp",
@@ -74,13 +74,17 @@ _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost
 _counts_lock = threading.Lock()
-# K7's and K11's launches by shape, filled only where those kernels launch
-# (no device sync): which shapes they have to serve.  Keys are (pass, B, l,
-# k, form): pass "lift", "sub_scale", "row_sum" or K11's op; B the [l, N]
-# blocks of the output; l its limbs; k the sub-scale's addend components,
-# K11's head (0: every component) or the row sum's R; form whether the
-# sub-scale's addend is gathered, or K11's operand b ("same", "plane",
-# "limb", or "" for neg)
+# K4's, K6's, K7's, K10's and K11's launches by shape, filled only where
+# those kernels launch (no device sync): which shapes they have to serve.
+# Keys are (pass, B, l, k, form): pass "ks_mac", "seeded_pre", "seeded_c0",
+# "pk_pre", "pk_mac", "lift", "sub_scale", "row_sum" or K11's op; B the
+# [l, N] blocks of the output (K4: its R rotations or relinearizations; K6
+# and K10: the ciphertexts of the launch); l its limbs (K4: E = l + S); k
+# K4's digits, the sub-scale's addend components, K11's head (0: every
+# component) or the row sum's R; form K4's flags (shared key, shared
+# digits: every row takes one digit stack, perms: a per-row automorphism),
+# whether the sub-scale's addend is gathered, or K11's operand b ("same",
+# "plane", "limb", or "" for neg)
 shape_hist: Dict[tuple, int] = {}
 
 _lib = None

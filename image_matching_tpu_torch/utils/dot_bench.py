@@ -22,8 +22,6 @@ blocks and K = 512, and the stacked route is timed with it too.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -33,8 +31,7 @@ from typing import Dict, List
 import torch
 
 from ..matching import senders
-from ..ops import kernels
-from .ntt_bench import _event_ms
+from .benchkit import build_alone, event_ms
 
 GROUPS, DIM, N1 = 64, 512, 32  # 2^20 vectors, BSGS n1 = 32, n2 = 16 blocks
 SEED = 1234
@@ -43,20 +40,8 @@ SEED = 1234
 def build_baseline(src: Path):
     """Another ct_dot.cu built alone into its own library, its includes
     from its own directory first, then the port's csrc/."""
-    src = Path(src).resolve()
-    h = hashlib.sha256(src.read_bytes())
-    for p in sorted(src.parent.glob("*.cuh")):
-        h.update(p.read_bytes())
-    out = kernels.BUILD_DIR / f"libct_dot_baseline_{h.hexdigest()[:12]}.so"
-    if not out.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(src.parent),
-                        "-I", str(kernels.CSRC), "-o", str(out), str(src)], check=True,
-                       capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.imtpu_ct_dot.restype = ctypes.c_int
-    lib.imtpu_ct_dot.argtypes = [kernels._CTYPE[c] for c in "pppiiiiiipp"] + [ctypes.c_void_p]
-    return lib
+    src = Path(src)
+    return build_alone(src.parent, (src.name,), "ct_dot", {"imtpu_ct_dot": "pppiiiiiipp"})
 
 
 def _baseline_dot(lib, ctx, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -117,7 +102,7 @@ def measure(ctx, baseline=None) -> List[Dict]:
     order = names + names[::-1]  # seeded, stacked, ..., stacked, seeded
     times: Dict[str, List[float]] = {k: [] for k in names}
     for name in order:  # each group's kernels outlast its wrappers' host time
-        times[name].append(_event_ms(routes[name], 1))
+        times[name].append(event_ms(routes[name], 1))
     out = [{"what": f"64-group contraction, {name}", "seconds": [t / 1e3 for t in ts],
             "mean_s": sum(ts) / len(ts) / 1e3} for name, ts in times.items()]
     del stack, c0s
@@ -147,7 +132,7 @@ def _k2_beside(ctx, baseline, gen) -> List[Dict]:
 
         new(), old()
         torch.cuda.synchronize()
-        ks = [_event_ms(new, 20), _event_ms(old, 20), _event_ms(old, 20), _event_ms(new, 20)]
+        ks = [event_ms(new, 20), event_ms(old, 20), event_ms(old, 20), event_ms(new, 20)]
         out.append({"what": f"K2 {label}", "ms": (ks[0] + ks[3]) / 2,
                     "baseline_ms": (ks[1] + ks[2]) / 2})
         del A, B, want

@@ -25,8 +25,6 @@ that design (qs, qnegs, t_std, inv_q, qd, qnegd, qg_r2, qhat).
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -39,7 +37,8 @@ import torch
 from ..ckks import context as tc
 from ..ops import kernels
 from ..ops import modmath as mm
-from .ntt_bench import HBM_BYTES_PER_S, _event_ms
+from .benchkit import bound as bound_ms
+from .benchkit import build_alone, call, event_ms, rand_rows
 
 SOURCES = ("basis_convert.cu", "decompose.cu")
 
@@ -47,22 +46,8 @@ SOURCES = ("basis_convert.cu", "decompose.cu")
 def build_baseline(src_dir: Path):
     """The earlier K3 and K8 built alone into one library, their includes
     from ``src_dir`` first."""
-    src_dir = Path(src_dir).resolve()
-    h = hashlib.sha256()
-    for p in sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh")):
-        h.update(p.name.encode() + p.read_bytes())
-    out = kernels.BUILD_DIR / f"libfbc_baseline_{h.hexdigest()[:12]}.so"
-    if not out.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(src_dir),
-                        "-o", str(out), *(str(src_dir / s) for s in SOURCES)], check=True,
-                       capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    for name in ("imtpu_fbc", "imtpu_decompose"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [kernels._CTYPE[c] for c in kernels._ENTRIES[name]] + [ctypes.c_void_p]
-    return lib
+    return build_alone(src_dir, SOURCES, "fbc",
+                       {name: kernels._ENTRIES[name] for name in ("imtpu_fbc", "imtpu_decompose")})
 
 
 def _old_packed(ctx, src, dst) -> np.ndarray:
@@ -75,24 +60,10 @@ def _old_packed(ctx, src, dst) -> np.ndarray:
         host["qg_r2"][:, 0], host["qhat"].ravel()])
 
 
-def _call(lib, entry, out, *args):
-    rc = getattr(lib, entry)(out.data_ptr(), *args,
-                             torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"baseline {entry}: CUDA error {rc}")
-    return out
-
-
-def _rows(ctx, gen, shape, limbs):
-    q = ctx.q64[list(limbs)][:, None]
-    return (torch.randint(0, 1 << 62, (*shape, len(limbs), ctx.n), generator=gen,
-                          device=ctx.device) % q).int()
-
-
 def _fbc_case(ctx, lib, gen, label, src, dst, B, centred):
     shift = ctx._centre_shift(len(dst)) if centred else None
     pre, post = shift if centred else ((None, None), (None, None))
-    x = _rows(ctx, gen, (B,), src)
+    x = rand_rows(ctx, gen, (B,), src)
     g, t, n = len(src), len(dst), ctx.n
     want = tc.fbc_plain(x, ctx._fbc_consts(src, dst), pre[0], post[0])
 
@@ -105,13 +76,13 @@ def _fbc_case(ctx, lib, gen, label, src, dst, B, centred):
         out = torch.empty((B, t, n), dtype=torch.int32, device=ctx.device)
 
         def old():
-            return _call(lib, "imtpu_fbc", out, x.data_ptr(), packed.data_ptr(),
-                         kernels.ptr(pre[1]), kernels.ptr(post[1]), B, g, t, n)
+            return call(lib, "imtpu_fbc", out, x.data_ptr(), packed.data_ptr(),
+                        kernels.ptr(pre[1]), kernels.ptr(post[1]), B, g, t, n)
     return label, new, old, want, B * (g + t) * n * 4
 
 
 def _decompose_case(ctx, lib, gen, label, R, l):
-    coeff = _rows(ctx, gen, (R,), range(l))
+    coeff = rand_rows(ctx, gen, (R,), range(l))
     E, n = l + ctx.S, ctx.n
     digits = ctx._digits(l)
     want = tc.decompose_coeff_plain(ctx, coeff, l)
@@ -131,8 +102,8 @@ def _decompose_case(ctx, lib, gen, label, R, l):
         out = torch.empty((R, len(digits), E, n), dtype=torch.int32, device=ctx.device)
 
         def old():
-            return _call(lib, "imtpu_decompose", out, coeff.data_ptr(), l * n,
-                         consts.data_ptr(), dinfo.data_ptr(), R, len(digits), E, n)
+            return call(lib, "imtpu_decompose", out, coeff.data_ptr(), l * n,
+                        consts.data_ptr(), dinfo.data_ptr(), R, len(digits), E, n)
     return label, new, old, want, R * (l + len(digits) * E) * n * 4
 
 
@@ -162,11 +133,11 @@ def measure(ctx, baseline=None) -> List[Dict]:
             raise AssertionError(f"fbc_bench {label}: max_abs_err {err}, baseline {base_err}")
         torch.cuda.synchronize()
         if old is None:
-            ms, base_ms = (_event_ms(new, 20) + _event_ms(new, 20)) / 2, None
+            ms, base_ms = (event_ms(new, 20) + event_ms(new, 20)) / 2, None
         else:
-            ks = [_event_ms(new, 20), _event_ms(old, 20), _event_ms(old, 20), _event_ms(new, 20)]
+            ks = [event_ms(new, 20), event_ms(old, 20), event_ms(old, 20), event_ms(new, 20)]
             ms, base_ms = (ks[0] + ks[3]) / 2, (ks[1] + ks[2]) / 2
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = bound_ms(nbytes, 0)[0]
         out.append({"what": label, "ms": ms, "baseline_ms": base_ms, "bound_ms": bound,
                     "bound_by": "bytes", "share_of_bound": bound / ms,
                     "baseline_share": None if base_ms is None else bound / base_ms,

@@ -19,8 +19,6 @@ butterflies' 32-bit operations over 67 T/s.  ``chip_smoke.py`` calls
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import subprocess
 import sys
@@ -32,11 +30,8 @@ import torch
 
 from ..ops import kernels
 from ..ops.ntt import NttPlan, ntt_fwd_plain, ntt_inv_plain, permute_rows
+from .benchkit import bound, build_alone, event_ms, ntt_ops
 
-HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM device memory
-INT_OPS_PER_S = 67e12      # 32-bit lanes outside the tensor cores
-BUTTERFLY_OPS = 10         # a Shoup product (6) and two modular adds (2 each)
-SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock: above one call's host time
 # (label, batch, limbs): rows = batch x limbs of the production chain; 2
 # is a rescale's top limb, 28 a ciphertext, 160 = [8, 20] a decomposed digit stack,
 # 448 a compare stack of 16 scores
@@ -44,33 +39,19 @@ SHAPES = [("2 rows [2,1]", 2, 1), ("28 rows [2,14]", 2, 14), ("160 rows [8,20]",
           ("448 rows [32,14]", 32, 14)]
 
 
-def ntt_ops(rows: int, n: int) -> int:
-    return rows * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
-
-
 def bound_ms(rows: int, limbs: int, n: int, perm_rows: int = 0):
     """(ms, "bytes" or "operations") for `rows` transforms of N = n over
     `limbs` twiddle rows, with `perm_rows` permutations read."""
-    nbytes = (2 * rows * n + 2 * limbs * n + perm_rows * n) * 4
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ntt_ops(rows, n) / INT_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    return bound((2 * rows * n + 2 * limbs * n + perm_rows * n) * 4, ntt_ops(rows, n))
 
 
 def build_baseline(src: Path):
-    """Another ntt.cu built alone into its own library (its headers from
-    the port's csrc/), loaded with its own ``imtpu_ntt``."""
-    src = Path(src).resolve()
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = kernels.BUILD_DIR / f"libntt_baseline_{tag}.so"
-    if not out.exists():
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
-                        "-o", str(out), str(src)], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.imtpu_ntt.restype = ctypes.c_int
-    lib.imtpu_ntt.argtypes = [kernels._CTYPE[c] for c in kernels._ENTRIES["imtpu_ntt"]] + [
-        ctypes.c_void_p]
-    return lib
+    """Another ntt.cu built alone into its own library (its includes from
+    its own directory first, then the port's csrc/), loaded with its own
+    ``imtpu_ntt``."""
+    src = Path(src)
+    return build_alone(src.parent, (src.name,), "ntt",
+                       {"imtpu_ntt": kernels._ENTRIES["imtpu_ntt"]})
 
 
 def _baseline_call(lib, plan: NttPlan, a: torch.Tensor, limbs, inverse: bool,
@@ -89,20 +70,6 @@ def _baseline_call(lib, plan: NttPlan, a: torch.Tensor, limbs, inverse: bool,
     if rc != 0:
         raise RuntimeError(f"baseline imtpu_ntt: CUDA error {rc}")
     return out
-
-
-def _event_ms(fn, iters: int) -> float:
-    """Device time per call: the stream first runs a sleep long enough for
-    the host to queue every call behind it, so the window holds the
-    kernels back to back and not the wrappers' host time."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(iters * SLEEP_CYCLES_PER_CALL))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def measure(plan: NttPlan, baseline=None, iters: int = 20) -> List[Dict]:
@@ -142,13 +109,13 @@ def measure(plan: NttPlan, baseline=None, iters: int = 20) -> List[Dict]:
                 for _ in range(3):  # warm-up
                     fn(a, limbs, p)
                 torch.cuda.synchronize()
-                k1 = [_event_ms(lambda: fn(a, limbs, p), iters)]
+                k1 = [event_ms(lambda: fn(a, limbs, p), iters)]
                 base = []
                 if baseline is not None:
                     call = lambda: _baseline_call(baseline, plan, a, limbs, inverse, p)  # noqa: E731
-                    base = [_event_ms(call, iters), _event_ms(call, iters)]
-                    k1.append(_event_ms(lambda: fn(a, limbs, p), iters))
-                pms = _event_ms(plain, 2)
+                    base = [event_ms(call, iters), event_ms(call, iters)]
+                    k1.append(event_ms(lambda: fn(a, limbs, p), iters))
+                pms = event_ms(plain, 2)
                 bms, by = bound_ms(batch * L, L, n, 0 if p is None else batch)
                 rows_out.append({
                     "shape": label, "rows": batch * L, "direction": "inv" if inverse else "fwd",

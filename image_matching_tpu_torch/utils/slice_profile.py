@@ -15,11 +15,13 @@ one membership of the sharded scenario over a mesh naming the card N
 times) and reports device kernel time, busy share (kernel time over the
 profiled wall time) and the time and launches of each hand-written kernel;
 before that, the launches of one membership by kernel and K1's launches by
-row count (``NttPlan.rows_hist``), K7's and K11's launches by shape
+row count (``NttPlan.rows_hist``), K4's, K7's and K11's launches by shape
 (``kernels.shape_hist``), and digests of the membership ciphertext
 and the index flags, which two trees that compute bit-equal results print
 alike.  Each profile also counts the memory copies by kind (a pageable
-host-to-device copy blocks the host until the stream drains).
+host-to-device copy blocks the host until the stream drains).  After the
+setup it prints the launches by shape of the encryption kernels (K6, the
+streamed enrollment; K10, the in-memory enrollment and the query).
 Prints the summary and writes it with the profiler tables to --out.
 """
 
@@ -71,6 +73,7 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
         mult_depth=compute_required_depth(approach, cfg.comp_depth, cfg.alpha_depth))
     query, db = gen_dataset(1 << log2n, cfg.vector_dim, seed=0)
     kernels.lib()
+    kernels.shape_hist.clear()
     setup = {}
     ctx = timed(setup, "ctx_keygen_s", lambda: CkksContext(params, seed=0, device="cuda"))
     hers = approach == 4
@@ -90,6 +93,9 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
     timed(setup, "sender_keys_s",
           lambda: ctx.gen_rotation_keys(sender.required_rotations(), force=True))
     qcts = timed(setup, "encrypt_query_s", lambda: receiver.encrypt_query(query))
+    enc = sorted(kernels.shape_hist.items(), key=lambda kv: -kv[1])
+    say("setup and query encryption: K6 and K10 launches by (pass, B, l, k, form) "
+        + json.dumps([[list(k), v] for k, v in enc]))
     timed(setup, "first_membership_s", lambda: sender.run_membership(qcts))
     say("setup " + json.dumps(setup))
     for rep in range(3):
@@ -114,7 +120,7 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
     say(f"one membership: {sum(launched.values())} kernel launches {json.dumps(launched)}; "
         f"K1 launches by rows {json.dumps(dict(sorted(hist.items())))}")
     shapes = sorted(kernels.shape_hist.items(), key=lambda kv: -kv[1])
-    say("one membership: K7 and K11 launches by (pass, B, l, k, form) "
+    say("one membership: K4, K7 and K11 launches by (pass, B, l, k, form) "
         + json.dumps([[list(k), v] for k, v in shapes]))
 
     profiled = [("membership", lambda: sender.run_membership(qcts)),

@@ -256,15 +256,23 @@ def test_ks_mac_kernel_matches_plain():
             assert torch.equal(got, ks_mac_plain(d, k, l, ctx.Lq, q, rinv, p))
 
 
-@pytest.mark.parametrize("n,B,l", [(512, 3, None), (512, 2, 5), (32768, 4, None), (32768, 2, 3)])
+@pytest.mark.parametrize("n,B,l", [(512, 3, None), (512, 2, 5), (32768, 4, None), (32768, 2, 3),
+                                   (32768, 1, None), (32768, 70, None)])
 def test_seeded_kernels_match_plain(n, B, l):
     """K5 (c1 expansion, into a plain and a strided output) and both passes
     of K6 (seeded encryption) against their plain versions, at the full
-    limb count and below it, with seed and group >= 2^31."""
+    limb count and below it, with seed and group >= 2^31 and int32 noise;
+    one row (the pre pass splits its limbs over grid z), 70 rows (the c0
+    pass walks stretches of 7); from misaligned row views (V = 1)."""
     dev = _device()
     p = SchemeParams.create(ring_dim=n, mult_depth=11, security="none")
     ctx = CkksContext(p, seed=1, device=dev)
     l = l or ctx.Lq
+    _check_seeded(ctx, B, l)
+
+
+def _check_seeded(ctx, B, l):
+    dev, n = ctx.device, ctx.n
     seed, group = 2 ** 31 + 5, 2 ** 32 - 3
     c1 = _launched("expand_c1", lambda: ctx.expand_c1(seed, group, B, l))
     assert torch.equal(c1, prng.uniform_residues_plain(seed, group, (B, l, n), ctx.q32, ctx.r1_32))
@@ -276,11 +284,16 @@ def test_seeded_kernels_match_plain(n, B, l):
     hi, lo = (torch.from_numpy(a.view(np.int32)).to(dev) for a in ctx.split_coeffs(
         rng.integers(-(2 ** 45), 2 ** 45, size=(B, n))))
     e = torch.from_numpy(rng.integers(-30, 31, size=(B, n)).astype(np.int32)).to(dev)
+    assert e.dtype == torch.int32
     x = _launched("seeded_pre", lambda: ctx._seeded_pre(hi, lo, e, l))
     assert torch.equal(x, seeded_pre_plain(ctx, hi, lo, e, l))
+    for args in [(_misaligned(hi), lo, e), (hi, _misaligned(lo), _misaligned(e))]:
+        assert torch.equal(_launched("seeded_pre", lambda: ctx._seeded_pre(*args, l)), x)
     x = ctx.plan.fwd(x, ctx.q_limbs(l))
     want = seeded_c0_plain(ctx, x, seed, group)
+    mis = _misaligned(x)
     assert torch.equal(_launched("seeded_c0", lambda: ctx._seeded_c0(x, seed, group)), want)
+    assert torch.equal(_launched("seeded_c0", lambda: ctx._seeded_c0(mis, seed, group)), want)
 
 
 def _numpy_noise(params):
@@ -682,25 +695,64 @@ def test_tensor_and_decrypt_kernels_match_plain(n):
             assert torch.equal(got, tc.decrypt_plain(ctx, data))
 
 
-@pytest.mark.parametrize("n,B", [(512, 3), (512, 130), (32768, 5)])
+@pytest.mark.parametrize("n,B", [(512, 3), (512, 130), (32768, 5), (32768, 1), (32768, 64)])
 def test_pk_encrypt_kernels_match_plain(n, B):
     """K10's pre and MAC passes around K1, within one chunk and across
-    chunks, at the top level and below."""
+    chunks, at the top level and below, with int32 noise (int64 raises);
+    each pass alone against its plain version, also from misaligned row
+    views (the pre pass takes V = 1) and with a v outside {-1, 0, 1}; one
+    ciphertext (a HyDia query: the pre pass splits its limbs over grid
+    z)."""
     dev = _device()
     ctx = _ctx(dev, n)
-    rng = np.random.default_rng(11)
     for l in (ctx.Lq, 5):
-        q = np.array(ctx.all_primes[:l], dtype=np.int64)[:, None]
-        m = torch.from_numpy((rng.integers(0, 1 << 62, size=(B, l, n)) % q).astype(
-            np.uint32).view(np.int32)).to(dev)
-        v = torch.from_numpy(rng.integers(-1, 2, size=(B, n))).to(dev)
-        e0, e1 = (torch.from_numpy(rng.integers(-20, 21, size=(B, n))).to(dev) for _ in range(2))
-        before = kernels.counts()
-        got = ctx._encrypt_impl(m, v, e0, e1, l)
-        chunks = -(-B // ctx._PK_CHUNK)
-        after = kernels.counts()
-        assert after["pk_pre"] - before["pk_pre"] == after["pk_mac"] - before["pk_mac"] == chunks
-        assert torch.equal(got, tc.pk_encrypt_plain(ctx, m, v, e0, e1, l))
+        _check_pk(ctx, B, l)
+
+
+def _check_pk(ctx, B, l):
+    dev, n = ctx.device, ctx.n
+    rng = np.random.default_rng(11)
+    q = np.array(ctx.all_primes[:l], dtype=np.int64)[:, None]
+    m = torch.from_numpy((rng.integers(0, 1 << 62, size=(B, l, n)) % q).astype(
+        np.uint32).view(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(-1, 2, size=(B, n)).astype(np.int32)).to(dev)
+    e0, e1 = (torch.from_numpy(rng.integers(-20, 21, size=(B, n)).astype(np.int32)).to(dev)
+              for _ in range(2))
+    before = kernels.counts()
+    got = ctx._encrypt_impl(m, v, e0, e1, l)
+    chunks = -(-B // ctx._PK_CHUNK)
+    after = kernels.counts()
+    assert after["pk_pre"] - before["pk_pre"] == after["pk_mac"] - before["pk_mac"] == chunks
+    assert torch.equal(got, tc.pk_encrypt_plain(ctx, m, v, e0, e1, l))
+    with pytest.raises(ValueError, match="int32"):
+        ctx._encrypt_impl(m, v.long(), e0, e1, l)
+    b = min(B, ctx._PK_CHUNK)
+    args = (m[:b], v[:b], e0[:b], e1[:b])
+    x = _launched("pk_pre", lambda: ctx._pk_pre(*args, l))
+    assert torch.equal(x, tc.pk_pre_plain(ctx, *args, l))
+    mis = (_misaligned(args[0]), args[1], _misaligned(args[2]), args[3])
+    assert torch.equal(_launched("pk_pre", lambda: ctx._pk_pre(*mis, l)), x)
+    wide = args[1].clone()
+    wide[:, :3] = torch.tensor([2, -7, int(min(ctx.all_primes[:l])) - 1], dtype=torch.int32)
+    assert torch.equal(_launched("pk_pre", lambda: ctx._pk_pre(args[0], wide, *args[2:], l)),
+                       tc.pk_pre_plain(ctx, args[0], wide, *args[2:], l))
+    x = ctx.plan.fwd(x, ctx.q_limbs(l))
+    want = tc.pk_mac_plain(ctx, x, l)
+    assert torch.equal(_launched("pk_mac", lambda: ctx._pk_mac(x, l)), want)
+    assert torch.equal(_launched("pk_mac", lambda: ctx._pk_mac(_misaligned(x), l)), want)
+    assert torch.equal(want, got[:b])
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_encryption_kernels_at_grote_width(B):
+    """K6's and K10's passes at GROTE's widest chain (l = 21 of 29 limbs),
+    ring 32768, against their plain versions: one ciphertext and an
+    in-memory enrollment chunk of 64."""
+    dev = _device()
+    ctx = _approach_ctx(dev, 2, 32768)
+    assert ctx.Lq == 21
+    _check_seeded(ctx, B, ctx.Lq)
+    _check_pk(ctx, B, ctx.Lq)
 
 
 @pytest.mark.parametrize("streamed", [False, True])

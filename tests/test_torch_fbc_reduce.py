@@ -29,7 +29,7 @@ from image_matching_tpu_torch.ops import modmath as tmm
 from _torch_parity import assert_same, jax_noise, port_params, u32
 
 M32 = (1 << 32) - 1
-THREADS, MIN_BLOCKS = 128, 528  # csrc/fbc.cuh FBC_THREADS, FBC_MIN_BLOCKS
+THREADS, MIN_BLOCKS = 128, 528  # csrc/fbc.cuh FBC_THREADS, passgrid.cuh PASS_MIN_BLOCKS
 RNG = np.random.default_rng(20)
 
 

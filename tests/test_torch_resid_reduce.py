@@ -37,7 +37,7 @@ from _torch_parity import assert_same, port_params, u32
 
 M32 = np.uint64(0xFFFFFFFF)
 S32 = np.uint64(32)
-K7_THREADS, K7_MIN_BLOCKS = 128, 528  # csrc/rescale.cu
+PASS_THREADS, PASS_MIN_BLOCKS = 128, 528  # csrc/passgrid.cuh (K7's grid)
 K11_THREADS = 128                     # csrc/modarith.cu
 MAX_GRID_Y = 65535                    # both
 RNG = np.random.default_rng(21)
@@ -99,18 +99,18 @@ class Out:
 # ---------------------------------------------------------------------------
 
 
-def k7_grid(B, l, n, V, max_y=MAX_GRID_Y):
-    """rescale.cu k7_grid: (blocks x, y, z, limbs per z chunk)."""
-    bx = -(-(n // V) // K7_THREADS)
+def limb_split_grid(B, l, n, V, max_y=MAX_GRID_Y):
+    """passgrid.cuh limb_split_grid: (blocks x, y, z, limbs per z chunk)."""
+    bx = -(-(n // V) // PASS_THREADS)
     by = min(B, max_y)
-    chunks = min(max(1, -(-K7_MIN_BLOCKS // (bx * by))), l)
+    chunks = min(max(1, -(-PASS_MIN_BLOCKS // (bx * by))), l)
     per = -(-l // chunks)
     return bx, by, -(-l // per), per
 
 
 def thread_coeffs(bx, n, V):
     """The first coefficient of every live thread of a row."""
-    k = np.arange(bx * K7_THREADS) * V
+    k = np.arange(bx * PASS_THREADS) * V
     return k[k < n]
 
 
@@ -122,7 +122,7 @@ def emulate_lift(ctx, top: torch.Tensor, l: int, max_y=MAX_GRID_Y):
     store, off = storage(top)
     V = 4 if n % 4 == 0 and aligned(off) else 1
     qt, qtn = int(ctx.all_primes[l - 1]), int(ctx.qneg_np[l - 1])
-    bx, by, bz, per = k7_grid(B, lo, n, V, max_y)
+    bx, by, bz, per = limb_split_grid(B, lo, n, V, max_y)
     out = Out(B, lo, n)
     k = thread_coeffs(bx, n, V)
     for z in range(bz):
@@ -167,7 +167,7 @@ def emulate_sub_scale(ctx, x, t, cinv32, add=None, perms=None, max_y=MAX_GRID_Y)
                 or (aligned(ao) and add_r % 4 == 0 and add_c % 4 == 0))
            and (perms is None or (aligned(po) and perm_r % 4 == 0)))
     V = 4 if vec else 1
-    bx, by, bz, per = k7_grid(B, l, n, V, max_y)
+    bx, by, bz, per = limb_split_grid(B, l, n, V, max_y)
     c = u32(cinv32).astype(np.uint64)
     out = Out(B, l, n)
     k = thread_coeffs(bx, n, V)
@@ -373,13 +373,13 @@ def test_lift_launch_matches_plain(real, chain, B, l):
 
 
 def test_lift_grid_splits_and_loops():
-    """k7_grid: a launch of few rows splits its limbs over z until it has
+    """limb_split_grid: a launch of few rows splits its limbs over z until it has
     528 blocks; past the grid's y limit the rows loop."""
-    assert k7_grid(32, 13, 32768, 4) == (64, 32, 1, 13)
-    assert k7_grid(2, 13, 32768, 4) == (64, 2, 5, 3)
-    assert k7_grid(1, 1, 32768, 4) == (64, 1, 1, 1)
-    assert k7_grid(2, 13, 512, 1) == (4, 2, 13, 1)
-    assert k7_grid(70000, 3, 512, 4)[1] == MAX_GRID_Y
+    assert limb_split_grid(32, 13, 32768, 4) == (64, 32, 1, 13)
+    assert limb_split_grid(2, 13, 32768, 4) == (64, 2, 5, 3)
+    assert limb_split_grid(1, 1, 32768, 4) == (64, 1, 1, 1)
+    assert limb_split_grid(2, 13, 512, 1) == (4, 2, 13, 1)
+    assert limb_split_grid(70000, 3, 512, 4)[1] == MAX_GRID_Y
 
 
 @pytest.mark.parametrize("chain", ["HyDia", "GROTE"])
