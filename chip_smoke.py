@@ -38,7 +38,12 @@ line is printed):
      at B = 512; where build/enc_prev/ holds an earlier seeded_encrypt.cu,
      pk_encrypt.cu, threefry.cuh and modmath.cuh, K6's and K10's passes
      alone beside that design in turns, K5 on K6's draws and K4 at one
-     membership's shapes (utils/enc_bench.py);
+     membership's shapes (utils/enc_bench.py); K9's decryption of a list
+     of separate ciphertexts (one MAC pass over their addresses, one K1
+     inverse) at 64 and 1 ciphertexts of [2, 2, N] (the streamed index
+     flags, the membership) and 1 of [3, 14, N]; where build/dec_prev/
+     holds an earlier tensor.cu and modmath.cuh, the MAC pass alone
+     beside that design in turns (utils/dec_bench.py);
   3. drive HyDia (approach 5) with an in-memory encrypted DB of 2^16
      vectors at production parameters (ring 32768, dim 512, threshold
      0.44, comparison depth 10): setup, encrypt the query, membership,
@@ -53,8 +58,10 @@ line is printed):
      (a first call, then three repetitions each), the same decisions and
      score parity over all 2^20 vectors; resident and pinned group counts,
      peak device memory (and over the queries alone); the launches of one
-     membership and K1's launches by row count; every kernel launched but
-     K5 and ct_dot (the seeded contraction draws c1 in registers);
+     membership and K1's launches by row count; the receiver's decryption
+     of the membership and of the index (host clock), the index's flags in
+     one decrypt MAC launch; every kernel launched but K5 and ct_dot (the
+     seeded contraction draws c1 in registers);
   6. 2^17 vectors (8 groups) with resident_budget=0, so every group
      crosses PCIe on every query: the same decisions, the per-group copy
      and compute times, and a membership ciphertext bit-equal to the same
@@ -67,7 +74,9 @@ line is printed):
      phase 3 (and but K2 for Baseline and GROTE).
 Sharded (parallel/sharded.py), reusing the protocols above: after phase 3,
 K12 (the modular sum of shard partials) against its plain version at the
-flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows;
+flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows
+(and utils/psum_bench.py beside an earlier psum_mod.cu where
+build/psum_prev/ holds one);
 then HyDia 2^16 (after phase 3) and HERS 2^16 (after phase 7) in memory over
 one-card meshes of 4, 2 and 3 shards, HyDia 2^20 streamed (after phase 5)
 and 2^17 pinned (inside phase 6, before its groups are promoted) over 4
@@ -97,7 +106,8 @@ import time
 import numpy as np
 import torch
 
-from image_matching_tpu_torch.utils.benchkit import ADD, MUL, THREEFRY_OPS, bound, ntt_ops
+from image_matching_tpu_torch.utils.benchkit import (ADD, MUL, SLEEP_CYCLES_PER_CALL, THREEFRY_OPS,
+                                                     bound, ntt_ops)
 
 NVEC = 1 << 16          # in-memory HyDia and HERS
 NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
@@ -124,7 +134,7 @@ def cuda_ms(fn, iters=5):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(iters * 400_000))
+    torch.cuda._sleep(int(iters * SLEEP_CYCLES_PER_CALL))
     start.record()
     for _ in range(iters):
         fn()
@@ -178,7 +188,10 @@ def check_psum_mod(rows, l, device):
     one-row buffers (shard partials) and one buffer of 16 rows."""
     from image_matching_tpu_torch.ckks.params import SchemeParams, compute_required_depth
     from image_matching_tpu_torch.matching.config import MatchConfig
+    from pathlib import Path
+
     from image_matching_tpu_torch.parallel import sharded
+    from image_matching_tpu_torch.utils import psum_bench
 
     record = recorder(rows)
     gen = torch.Generator(device=device)
@@ -195,6 +208,13 @@ def check_psum_mod(rows, l, device):
                lambda: sharded.psum_mod_plain(parts, q), (R + 1) * 2 * l * n * 4,
                R * 2 * l * n * ADD)
         del parts
+    # utils/psum_bench.py beside an earlier psum_mod.cu in build/psum_prev/
+    src = Path(__file__).resolve().parent / "build" / "psum_prev"
+    if not all((src / f).exists() for f in psum_bench.SOURCES):
+        log(f"psum_bench: no earlier psum_mod.cu / modmath.cuh in {src}: not run")
+        return
+    for r in psum_bench.measure(psum_bench.build_baseline(src), device):
+        log("psum_bench " + json.dumps(r))
 
 
 def check_kernels(ctx, device):
@@ -290,6 +310,7 @@ def check_kernels(ctx, device):
     check_fbc_bench(ctx)
     check_resid_bench(ctx)
     check_enc_bench(ctx)
+    check_dec_bench(ctx)
     return rows
 
 
@@ -429,6 +450,23 @@ def check_dot_bench(ctx):
     free_device()
 
 
+def check_dec_bench(ctx):
+    """Phase 2, utils/dec_bench.py where build/dec_prev/ holds an earlier
+    tensor.cu and modmath.cuh: K9's decrypt MAC alone at the receivers'
+    shapes beside that design built alone, in turns."""
+    from pathlib import Path
+
+    from image_matching_tpu_torch.utils import dec_bench
+
+    src = Path(__file__).resolve().parent / "build" / "dec_prev"
+    if not all((src / f).exists() for f in dec_bench.SOURCES):
+        log(f"dec_bench: no earlier tensor.cu / modmath.cuh in {src}: not run")
+        return
+    for r in dec_bench.measure(ctx, dec_bench.build_baseline(src)):
+        log("dec_bench " + json.dumps(r))
+    free_device()
+
+
 def check_fbc_bench(ctx):
     """Phase 2, utils/fbc_bench.py: K3 and K8 alone at the main path's
     shapes; with build/fbc_prev/ (an earlier basis_convert.cu, decompose.cu
@@ -545,6 +583,7 @@ def check_fused(ctx, device, gen, record, rows):
     first (a relinearization's R = 1, the query's B = 512), then at
     HyDia's batched key switches (R = 15 giant, 31 hoisted rotations)."""
     from image_matching_tpu_torch.ckks import context as tc
+    from image_matching_tpu_torch.utils import dec_bench
 
     P, n, Lq, S = ctx.all_primes, ctx.n, ctx.Lq, ctx.S
     ext = ctx.ext_limbs(Lq)
@@ -589,11 +628,18 @@ def check_fused(ctx, device, gen, record, rows):
     record("tensor", "square 2x14 limbs", ctx._tensor(x, None), tc.tensor_plain(ctx, x),
            lambda: ctx._tensor(x, None), lambda: tc.tensor_plain(ctx, x),
            5 * Lq * n * 4, Lq * n * (3 * MUL + ADD))
-    d = rand_residues((3, Lq, n), qp, gen, device)
-    record("decrypt_mac", "decrypt 3x14 limbs", ctx._decrypt_impl(d), tc.decrypt_plain(ctx, d),
-           lambda: ctx._decrypt_impl(d), lambda: tc.decrypt_plain(ctx, d),
-           5 * Lq * n * 4, Lq * n * (4 * MUL + 2 * ADD) + ntt_ops(Lq, n))
-    del x, y, d
+    # the decryption of a list of separate ciphertexts: one MAC pass over
+    # their addresses, one K1 inverse (the streamed index's 64 flags, the
+    # membership, the kernel table's row)
+    for B, k, l in [(64, 2, 2), (1, 2, 2), (1, 3, Lq)]:
+        blocks = [rand_residues((k, l, n), qp[:l], gen, device) for _ in range(B)]
+        nbytes, ops = dec_bench.mac_work(B, k, l, n)
+        record("decrypt_mac", f"decrypt {B} ciphertexts [{k},{l},N] (MAC, K1)",
+               ctx._decrypt_group(blocks), tc.decrypt_plain(ctx, torch.stack(blocks)),
+               lambda: ctx._decrypt_group(blocks),
+               lambda: tc.decrypt_plain(ctx, torch.stack(blocks)), nbytes,
+               ops + ntt_ops(B * l, n))
+    del x, y, blocks
     # K10: public-key encryption of the HERS query, B = 512 (pre, K1, MAC;
     # its passes alone in check_pk_passes)
     B = DIM
@@ -760,9 +806,18 @@ def streamed_phase(approach, cfg, device, smi):
     mem, idx = queries(proto, qcts, times)
     query_peak = torch.cuda.max_memory_allocated()
     one_membership_launches(name, proto, qcts)
-    member = proto.decrypt_membership(mem)
-    found = sorted(proto.decrypt_index(idx))
+    member = timed(times, "decrypt_membership_s", lambda: proto.decrypt_membership(mem))
+    before = kernels.counts()["decrypt_mac"]
+    found = sorted(timed(times, "decrypt_index_s", lambda: proto.decrypt_index(idx)))
     launches = kernels.counts()
+    # the flags decrypt together: one MAC launch a (components, limbs) group
+    groups = {}
+    for f in idx:
+        groups[f.ncomp, f.limbs] = groups.get((f.ncomp, f.limbs), 0) + 1
+    dec = launches["decrypt_mac"] - before
+    log(f"{name}: the index's {len(idx)} flags decrypted with {dec} decrypt_mac launch(es)")
+    assert dec == sum(-(-g // proto.ctx.DECRYPT_CAP) for g in groups.values()), \
+        f"{name}: the index flags were not decrypted together"
     store = proto.sender.store
     times.update(groups=store.num_groups, resident_groups=store.resident_count(),
                  pinned_groups=store.host_count(),

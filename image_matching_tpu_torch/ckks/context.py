@@ -37,6 +37,7 @@ numpy draw the JAX package turns into its ``jax.random`` key; a
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -334,12 +335,10 @@ def tensor_plain(ctx: "CkksContext", x: torch.Tensor,
     return torch.stack([c0, c1, c2], dim=-3)
 
 
-def decrypt_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
-    """[..., k, l, N] -> standard-form coefficient residues [..., l, N]
-    (K9's MAC, then K1)."""
+def _mac_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
+    """c0 + c1 s (+ c2 s^2) of data [..., k, l, N], evaluation domain."""
     k, l = data.shape[-3], data.shape[-2]
-    lim = ctx.q_limbs(l)
-    q, rinv = ctx._qrow(lim)
+    q, rinv = ctx._qrow(ctx.q_limbs(l))
     s = ctx.s_eval[:l]
     m = data[..., 0, :, :]
     spow = s
@@ -347,8 +346,24 @@ def decrypt_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
         m = mm.mod_add(m, mm.mont_mul(data[..., i, :, :], spow, q, rinv), q)
         if i + 1 < k:
             spow = mm.mont_mul(spow, s, q, rinv)
-    coeff_mont = ctx.plan.inv_plain(m, lim)
+    return m
+
+
+def decrypt_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
+    """[..., k, l, N] -> standard-form coefficient residues [..., l, N]
+    (K9's MAC, then K1)."""
+    lim = ctx.q_limbs(data.shape[-2])
+    q, rinv = ctx._qrow(lim)
+    coeff_mont = ctx.plan.inv_plain(_mac_plain(ctx, data), lim)
     return mm.mont_mul(coeff_mont, torch.ones_like(q), q, rinv)  # REDC
+
+
+def decrypt_mac_plain(ctx: "CkksContext", data: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9's MAC pass alone: REDC(c0 + c1 s (+ c2 s^2)) of
+    data [..., k, l, N], evaluation domain -> [..., l, N] (REDC before
+    K1's inverse: both maps are linear over Z_q)."""
+    q, rinv = ctx._qrow(ctx.q_limbs(data.shape[-2]))
+    return mm.mont_mul(_mac_plain(ctx, data), torch.ones_like(q), q, rinv)
 
 
 def pk_encrypt_plain(ctx: "CkksContext", m_rns: torch.Tensor, v: torch.Tensor,
@@ -402,6 +417,8 @@ class CkksContext:
     # rows per batched keyswitch of a stack rotated by one automorphism:
     # bounds the digit stack ([rows, dnum, l + S, N]) and the kernels' grids
     ROW_CHUNK = 128
+    # ciphertexts a decrypt MAC launch takes (csrc/tensor.cu K9_CAP)
+    DECRYPT_CAP = 64
 
     def __init__(self, params: SchemeParams, seed: int = 0, device="cuda",
                  noise: Optional[NoiseFn] = None,
@@ -1009,25 +1026,73 @@ class CkksContext:
         if not data.is_cuda:
             return decrypt_plain(self, data)
         k, l, n = data.shape[-3:]
-        if n != self.n or not 1 <= k <= 3:
-            raise ValueError(f"decrypt: data {tuple(data.shape)} for N={self.n}")
-        d = data.reshape(-1, k, l, n)
-        if d.stride(-1) != 1 or d.stride(-2) != n:
-            d = d.contiguous()
-        kernels.check_cuda("decrypt_mac", d, contiguous=False)
+        return self._decrypt_group(list(data.reshape(-1, k, l, n))).reshape(
+            *data.shape[:-3], l, n)
+
+    def _decrypt_mac(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """K9's MAC pass alone over ciphertext blocks [k, l, N] of one k and
+        l on this context's card: REDC(c0 + c1 s (+ c2 s^2)), evaluation
+        domain -> [B, l, N].  Their addresses go to the kernel by value,
+        ``DECRYPT_CAP`` a launch.  A block needs unit coefficient stride and
+        limb stride N, and the list one component stride: any other is
+        copied first.  CUDA only (plain: ``decrypt_mac_plain``)."""
+        k, l, n = blocks[0].shape
+        if n != self.n or not 1 <= k <= 3 or any(tuple(b.shape) != (k, l, n) for b in blocks):
+            raise ValueError(f"decrypt: blocks {[tuple(b.shape) for b in blocks]} for N={self.n}")
+        blocks = [b if b.stride(-1) == 1 and (l == 1 or b.stride(-2) == n) else b.contiguous()
+                  for b in blocks]
+        if k > 1 and len({b.stride(0) for b in blocks}) > 1:
+            blocks = [b.contiguous() for b in blocks]
+        kernels.check_cuda("decrypt_mac", *blocks, contiguous=False)
         kernels.check_cuda("decrypt_mac", self.s_eval, self.q32, self.qneg32)
-        B = d.shape[0]
-        out = torch.empty((B, l, n), dtype=torch.int32, device=data.device)
-        kernels.launch("imtpu_decrypt_mac", "decrypt_mac", out, kernels.ptr(d),
-                       d.stride(0), d.stride(1), k, kernels.ptr(self.s_eval),
-                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), B, l, n)
-        return self.plan.inv(out, self.q_limbs(l)).reshape(*data.shape[:-3], l, n)
+        B = len(blocks)
+        out = torch.empty((B, l, n), dtype=torch.int32, device=blocks[0].device)
+        for i in range(0, B, self.DECRYPT_CAP):
+            chunk = blocks[i:i + self.DECRYPT_CAP]
+            addrs = (ctypes.c_int64 * len(chunk))(*[b.data_ptr() for b in chunk])
+            kernels.launch("imtpu_decrypt_mac", "decrypt_mac", out[i:i + len(chunk)],
+                           ctypes.addressof(addrs), len(chunk), blocks[0].stride(0), k,
+                           kernels.ptr(self.s_eval), kernels.ptr(self.q32),
+                           kernels.ptr(self.qneg32), l, n)
+            kernels.note_shape("decrypt", len(chunk), l, k, "")
+        return out
+
+    def _decrypt_group(self, datas: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Ciphertext data [k, l, N] of one k and l -> standard-form
+        coefficient residues [B, l, N]: one MAC pass (K9) over their
+        addresses and one inverse (K1) on the card, ``decrypt_plain`` of
+        their stack on the CPU."""
+        if not datas[0].is_cuda:
+            return decrypt_plain(self, torch.stack(list(datas)))
+        return self.plan.inv(self._decrypt_mac(datas), self.q_limbs(datas[0].shape[-2]))
+
+    def _decrypt_many(self, cts: Sequence[Ciphertext]) -> List[np.ndarray]:
+        """Centered float64 coefficients [N] of each ciphertext, in input
+        order (``decrypt_coeffs`` of each): the ciphertexts grouped by (k,
+        l), one MAC pass (K9) and one inverse (K1) a group on the card, one
+        copy to the host, then the CRT of each on the host.  On the CPU each
+        group is stacked through ``decrypt_plain``."""
+        if not cts:
+            return []
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, ct in enumerate(cts):
+            groups.setdefault((ct.ncomp, ct.limbs), []).append(i)
+        stds = [self._decrypt_group([cts[i].data for i in idx]) for idx in groups.values()]
+        host = mm.to_numpy(torch.cat([t.reshape(-1) for t in stds]) if len(stds) > 1
+                           else stds[0].reshape(-1))
+        out: List[Optional[np.ndarray]] = [None] * len(cts)
+        at = 0
+        for ((_, l), idx), t in zip(groups.items(), stds):
+            rows = host[at:at + t.numel()].reshape(t.shape)
+            at += t.numel()
+            primes = self.all_primes[:l]
+            for i, std in zip(idx, rows):
+                out[i] = encoding.from_rns_centered(std[None, ...], primes)[0]
+        return out
 
     def decrypt_coeffs(self, ct: Ciphertext) -> np.ndarray:
         """-> centered float64 coefficient vector [n]."""
-        std = mm.to_numpy(self._decrypt_impl(ct.data))
-        primes = [self.all_primes[i] for i in range(ct.limbs)]
-        return encoding.from_rns_centered(std[None, ...], primes)[0]
+        return self._decrypt_many([ct])[0]
 
     def decrypt(self, ct: Ciphertext, num_slots: Optional[int] = None) -> np.ndarray:
         return encoding.decode(self.decrypt_coeffs(ct), self.n, ct.scale, num_slots)

@@ -8,9 +8,16 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ..ckks import encoding
 from ..ckks.context import CkksContext, Ciphertext
 from .config import MatchConfig
 from .vector_utils import normalize
+
+
+def decrypt_all(ctx: CkksContext, cts: Sequence[Ciphertext]) -> List[np.ndarray]:
+    """Each ciphertext's slots, as ``ctx.decrypt`` gives them: the list
+    decrypted at once (``ctx._decrypt_many``), decoded one by one."""
+    return [encoding.decode(c, ctx.n, ct.scale) for c, ct in zip(ctx._decrypt_many(cts), cts)]
 
 
 class HersReceiver:
@@ -42,8 +49,7 @@ class HersReceiver:
         """Every slot >= 1.0 maps to DB id j + i*batch."""
         batch = self.ctx.slots
         out = []
-        for i, ct in enumerate(cts):
-            vals = self.ctx.decrypt(ct)
+        for i, vals in enumerate(decrypt_all(self.ctx, cts)):
             for j in np.nonzero(vals >= 1.0)[0]:
                 idx = int(j) + i * batch
                 if idx < self.num_vectors:
@@ -51,7 +57,7 @@ class HersReceiver:
         return out
 
     def decrypt_scores(self, cts: Sequence[Ciphertext]) -> np.ndarray:
-        return np.concatenate([self.ctx.decrypt(ct) for ct in cts])
+        return np.concatenate(decrypt_all(self.ctx, cts))
 
 
 class BaseReceiver(HersReceiver):
@@ -83,8 +89,9 @@ class GroteReceiver(BaseReceiver):
         if n_row + n_col != len(cts):
             raise ValueError(f"GROTE index: {len(cts)} ciphertexts, expected "
                              f"{n_row} rows + {n_col} columns")
-        row_vals = np.concatenate([ctx.decrypt(c) for c in cts[:n_row]])
-        col_vals = np.concatenate([ctx.decrypt(c) for c in cts[n_row:]])
+        vals = decrypt_all(ctx, cts)
+        row_vals = np.concatenate(vals[:n_row])
+        col_vals = np.concatenate(vals[n_row:])
         rows = np.nonzero(row_vals >= 1.0)[0]
         cols = np.nonzero(col_vals >= 1.0)[0]
         out = []
@@ -117,8 +124,7 @@ class BlindReceiver(HersReceiver):
         cl = self.cfg.chunk_len
         spb = batch // cl  # scores per batch
         out = []
-        for i, ct in enumerate(cts):
-            vals = self.ctx.decrypt(ct)
+        for i, vals in enumerate(decrypt_all(self.ctx, cts)):
             for j in np.nonzero(vals >= 1.0)[0]:
                 j = int(j)
                 idx = i * batch + j // cl + (j % cl) * spb
@@ -135,8 +141,7 @@ class BlindReceiver(HersReceiver):
         j = np.arange(batch)
         order = j // cl + (j % cl) * spb  # slot -> vector offset
         outs = []
-        for ct in cts:
-            vals = np.asarray(self.ctx.decrypt(ct))
+        for vals in decrypt_all(self.ctx, cts):
             inv = np.empty(batch, vals.dtype)
             inv[order] = vals
             outs.append(inv)

@@ -51,12 +51,12 @@ _ENTRIES = {
     "imtpu_sub_scale": "ppipppppiiipiiii",
     "imtpu_decompose": "ppippiiii",
     "imtpu_tensor": "ppiipiiippiii",
-    "imtpu_decrypt_mac": "ppiiipppiii",
+    "imtpu_decrypt_mac": "ppiiipppii",
     "imtpu_pk_pre": "pppppppppiii",
     "imtpu_pk_mac": "ppppppiii",
     "imtpu_modarith": "ppipiiiiiiiipp",
     "imtpu_mod_sum": "ppiiiiipppp",
-    "imtpu_psum_mod": "ppiiiip",
+    "imtpu_psum_mod": "pppiiiip",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 
@@ -74,14 +74,15 @@ _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost
 _counts_lock = threading.Lock()
-# K4's, K6's, K7's, K10's and K11's launches by shape, filled only where
-# those kernels launch (no device sync): which shapes they have to serve.
-# Keys are (pass, B, l, k, form): pass "ks_mac", "seeded_pre", "seeded_c0",
-# "pk_pre", "pk_mac", "lift", "sub_scale", "row_sum" or K11's op; B the
-# [l, N] blocks of the output (K4: its R rotations or relinearizations; K6
-# and K10: the ciphertexts of the launch); l its limbs (K4: E = l + S); k
-# K4's digits, the sub-scale's addend components, K11's head (0: every
-# component) or the row sum's R; form K4's flags (shared key, shared
+# K4's, K6's, K7's, K9's decrypt, K10's and K11's launches by shape, filled
+# only where those kernels launch (no device sync): which shapes they have
+# to serve.  Keys are (pass, B, l, k, form): pass "ks_mac", "seeded_pre",
+# "seeded_c0", "decrypt", "pk_pre", "pk_mac", "lift", "sub_scale",
+# "row_sum" or K11's op; B the [l, N] blocks of the output (K4: its R
+# rotations or relinearizations; K6, K9 and K10: the ciphertexts of the
+# launch); l its limbs (K4: E = l + S); k K4's digits, K9's components,
+# the sub-scale's addend components, K11's head (0: every component) or
+# the row sum's R; form K4's flags (shared key, shared
 # digits: every row takes one digit stack, perms: a per-row automorphism),
 # whether the sub-scale's addend is gathered, or K11's operand b ("same",
 # "plane", "limb", or "" for neg)

@@ -32,6 +32,7 @@ package, the padding groups' flags are ~0 and are summed.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import time
@@ -43,6 +44,7 @@ import torch
 from ..ckks.context import Ciphertext, CkksContext
 from ..matching import senders, streaming
 from ..ops import kernels
+from ..ops import modmath as mm
 
 # the route of each card-to-card copy of a partial sum: "peer" (direct,
 # over NVLink where present) or "host" (through host memory)
@@ -98,30 +100,44 @@ def psum_mod_plain(parts: Sequence[torch.Tensor], q: torch.Tensor) -> torch.Tens
     return (acc % q).int()
 
 
+PSUM_CAP = 64  # buffers a K12 launch takes (csrc/psum_mod.cu K12_CAP)
+
+
 @functools.lru_cache(maxsize=None)
-def _primes_on(primes: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    return torch.tensor(primes, dtype=torch.int32, device=device)
+def _limb_consts(primes: Tuple[int, ...]):
+    """K12's per-limb constants as a host array (uint32 [4, l]): q,
+    -q^-1 mod 2^32, R mod q and R^2 mod q."""
+    cs = [mm.host_mont_constants(q) for q in primes]
+    vals = list(primes) + [c[0] for c in cs] + [c[1] for c in cs] + [c[2] for c in cs]
+    return (ctypes.c_uint32 * len(vals))(*vals)
 
 
 def psum_mod_kernel(parts: Sequence[torch.Tensor], primes: Sequence[int]) -> torch.Tensor:
     """K12: the sum mod q of every row of every part, all on one CUDA
-    device, each part [R_p, ..., l, N] contiguous, read in place through
-    a device table of their addresses -> [..., l, N]."""
+    device, each part [R_p, ..., l, N] contiguous, read in place -> [..., l,
+    N].  The parts' addresses and row counts go to the kernel by value, no
+    device table and no host sync; a list of more than ``PSUM_CAP`` parts
+    is summed in chunks, each chunk's sum one more one-row part."""
     block = tuple(parts[0].shape[1:])
     l, n = block[-2], block[-1]
     if len(primes) != l or any(tuple(p.shape[1:]) != block for p in parts):
         raise ValueError(f"psum_mod: parts {[tuple(p.shape) for p in parts]} "
                          f"over {len(primes)} limbs")
     kernels.check_cuda("psum_mod", *parts)
-    dev = parts[0].device
-    table = torch.tensor([p.data_ptr() for p in parts] + [p.shape[0] for p in parts],
-                         dtype=torch.int64, device=dev)
-    q32 = _primes_on(tuple(int(q) for q in primes), dev)
-    out = torch.empty(block, dtype=torch.int32, device=dev)
-    total = out.numel()
-    kernels.launch("imtpu_psum_mod", "psum_mod", out, kernels.ptr(table), len(parts), total,
-                   l, n, kernels.ptr(q32))
-    return out
+    consts = _limb_consts(tuple(int(q) for q in primes))
+
+    def launch(ps):
+        out = torch.empty(block, dtype=torch.int32, device=ps[0].device)
+        addrs = (ctypes.c_int64 * len(ps))(*[p.data_ptr() for p in ps])
+        rows = (ctypes.c_int64 * len(ps))(*[p.shape[0] for p in ps])
+        kernels.launch("imtpu_psum_mod", "psum_mod", out, ctypes.addressof(addrs),
+                       ctypes.addressof(rows), len(ps), out.numel(), l, n,
+                       ctypes.addressof(consts))
+        return out
+    parts = list(parts)
+    while len(parts) > PSUM_CAP:  # the head's sum joins the rest as one more row
+        parts = parts[PSUM_CAP:] + [launch(parts[:PSUM_CAP])[None]]
+    return launch(parts)
 
 
 _side_streams: Dict[torch.device, Any] = {}

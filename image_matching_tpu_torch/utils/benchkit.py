@@ -1,14 +1,16 @@
 """What the kernel benches (``ntt_bench``, ``dot_bench``, ``fbc_bench``,
-``resid_bench``, ``enc_bench``) and ``chip_smoke.py`` share: the card's
-rates and the operation counts behind a kernel's bound, device time in
-windows queued behind a sleep, another design's sources built alone into
-a library of their own, and random residue rows."""
+``resid_bench``, ``enc_bench``, ``psum_bench``, ``dec_bench``) and
+``chip_smoke.py`` share: the card's rates and the operation counts behind
+a kernel's bound, device time in windows queued behind a sleep, a
+wrapper's host time a call, another design's sources built alone into a
+library of their own, and random residue rows."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -23,7 +25,8 @@ MUL, ADD = 6, 2            # 32-bit operations per modular product / add
 BUTTERFLY_OPS = MUL + 2 * ADD  # a Shoup product and two modular adds
 THREEFRY_OPS = 20 * 4 + 4 * 6 + 2 * MUL  # a uniform residue: 20 rounds of add, rotate,
 # xor; the key injections; two Montgomery products
-SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock: above one call's host time
+SLEEP_CYCLES_PER_CALL = 2_000_000  # ~1 ms of the card's clock: above one call's host time
+# (a decryption of 64 ciphertexts takes ~0.1-0.6 ms of Python before its launch)
 
 
 def bound(nbytes, ops):
@@ -52,13 +55,26 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(new, old):
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time per call of ``iters`` calls with no sync inside, the card
+    idle before them: what a wrapper costs the caller's thread."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def in_turns(new, old, window=lambda fn: event_ms(fn, 20)):
     """(ms, baseline ms) of two calls on the same inputs: kernel,
-    baseline, baseline, kernel, twice (four windows of 20 calls a side);
+    baseline, baseline, kernel, twice (four windows a side; ``window``
+    gives a window's ms a call, by default device time over 20 calls);
     without a baseline (``old`` None), the kernel's four windows."""
     if old is None:
-        return sum(event_ms(new, 20) for _ in range(4)) / 4, None
-    ks = [event_ms(f, 20) for f in (new, old, old, new) * 2]
+        return sum(window(new) for _ in range(4)) / 4, None
+    ks = [window(f) for f in (new, old, old, new) * 2]
     return sum(ks[0::4] + ks[3::4]) / 4, sum(ks[1::4] + ks[2::4]) / 4
 
 

@@ -14,7 +14,10 @@ torch.profiler over one membership and one similarity (and with --shards N
 one membership of the sharded scenario over a mesh naming the card N
 times) and reports device kernel time, busy share (kernel time over the
 profiled wall time) and the time and launches of each hand-written kernel;
-before that, the launches of one membership by kernel and K1's launches by
+before that, the receiver's decryption of the membership, the index flags
+and the scores (host clock up to the returned result), the index flags'
+coefficients without the slots' decode (all at once, then one at a time)
+and K9's MAC launches by shape, the launches of one membership by kernel and K1's launches by
 row count (``NttPlan.rows_hist``), K4's, K7's and K11's launches by shape
 (``kernels.shape_hist``), and digests of the membership ciphertext
 and the index flags, which two trees that compute bit-equal results print
@@ -106,8 +109,23 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
         timed(r, "membership_s", lambda: sender.run_membership(qcts))
         timed(r, "index_s", lambda: sender.run_index(qcts))
         say(f"rep {rep} " + json.dumps(r))
-    say(f"membership decrypts to {receiver.decrypt_membership(out)}")
     flags = sender.run_index(qcts)
+    scores = sender.compute_similarity(qcts)
+    # the receiver's decryption, each on the host clock up to its result
+    kernels.shape_hist.clear()
+    dec = {}
+    member = timed(dec, "decrypt_membership_s", lambda: receiver.decrypt_membership(out))
+    found = timed(dec, "decrypt_index_s", lambda: receiver.decrypt_index(flags))
+    timed(dec, "decrypt_scores_s", lambda: receiver.decrypt_scores(scores))
+    del scores
+    say("decryption: K9 MAC launches by (pass, B, l, k, form) " + json.dumps(
+        [[list(k), v] for k, v in sorted(kernels.shape_hist.items(), key=lambda kv: -kv[1])]))
+    # the index's coefficients without the slots' decode: the flags at once
+    # (MAC, K1, one copy, the CRT on the host), then one at a time
+    timed(dec, "index_coeffs_s", lambda: ctx._decrypt_many(flags))
+    timed(dec, "index_coeffs_one_by_one_s", lambda: [ctx.decrypt_coeffs(f) for f in flags])
+    say(f"membership decrypts to {member}; index {found[:10]} ({len(found)} found); "
+        "receiver " + json.dumps(dec))
     say(f"sha256 of the membership ciphertext {_digest(out.data)}, of the index flags "
         f"{_digest(torch.cat([f.data.flatten() for f in flags]))} (equal across trees: "
         "bit-equal)")

@@ -888,6 +888,84 @@ def test_psum_mod_kernel_matches_plain(n):
             assert torch.equal(got.cpu(), want), (l, rows)
 
 
+def _counted(name, fn):
+    before = kernels.counts()[name]
+    out = fn()
+    return out, kernels.counts()[name] - before
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_psum_mod_kernel_past_the_cap_and_misaligned(n):
+    """K12 over P = 64, 65 and 133 buffers (one launch at the cap, chunks
+    past it), unequal counts and one-row views, each list also with
+    every buffer 4 bytes off a 16-byte boundary (V = 1), at the flag's
+    [2, 2, N], against psum_mod_plain."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cap = sharded.PSUM_CAP
+    q, _ = ctx._qrow(ctx.q_limbs(2))
+    primes = ctx.all_primes[:2]
+    for counts, launches in [([1] * cap, 1), ([1] * (cap + 1), 2), ([2] * (2 * cap + 5), 3),
+                             ([16, 1, 5, 16], 1)]:
+        parts = [_rows(ctx, gen, (R, 2), range(2)) for R in counts]
+        for ps in (parts, [_misaligned(p) for p in parts]):
+            got, k = _counted("psum_mod", lambda: sharded.psum_mod_kernel(ps, primes))
+            assert k == launches, (len(ps), k)
+            want = sharded.psum_mod_plain([p.cpu() for p in ps], q.cpu())
+            assert torch.equal(got.cpu(), want), (len(ps), ps[0].data_ptr() % 16)
+    stack = _rows(ctx, gen, (4, 2), range(2))  # all_gather's list: views of one stack
+    got = _launched("psum_mod", lambda: sharded.psum_mod_kernel(list(stack[:, None]), primes))
+    assert torch.equal(got.cpu(), sharded.psum_mod_plain([stack.cpu()], q.cpu()))
+
+
+def test_psum_mod_kernel_does_not_sync():
+    """K12's wrapper makes no copy from the host and waits for nothing:
+    with the card busy (a sleep queued first), the call returns while
+    the stream still runs; its result then equals the plain version."""
+    dev = _device()
+    ctx = _ctx(dev, 32768)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, _ = ctx._qrow(ctx.q_limbs(2))
+    primes = ctx.all_primes[:2]
+    parts = [_rows(ctx, gen, (16, 2), range(2)) for _ in range(4)]
+    sharded.psum_mod_kernel(parts, primes)  # the build and the limb constants
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)  # ~0.25 s of the card's clock
+    got = sharded.psum_mod_kernel(parts, primes)
+    assert not torch.cuda.current_stream().query(), "psum_mod_kernel waited for the card"
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sharded.psum_mod_plain([p.cpu() for p in parts], q.cpu()))
+
+
+@pytest.mark.parametrize("n", [512, 32768])
+def test_decrypt_mac_kernel_lists(n):
+    """K9's decrypt MAC over lists of separate ciphertexts: B = 1 and 64
+    (one launch), 65 and 130 (past the cap), k = 2 and 3, blocks 4 bytes
+    off a 16-byte boundary (V = 1) and limb-slice views, against
+    decrypt_mac_plain; _decrypt_group against decrypt_plain, and
+    _decrypt_many against decrypt_coeffs one at a time over a mixed list."""
+    dev = _device()
+    ctx = _ctx(dev, n)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    cap = ctx.DECRYPT_CAP
+    for B, k, l, launches in [(1, 2, 2, 1), (64, 2, 2, 1), (cap + 1, 2, 2, 2),
+                              (2 * cap + 2, 3, 3, 3), (1, 3, ctx.Lq, 1)]:
+        blocks = [_rows(ctx, gen, (k,), range(l)) for _ in range(B)]
+        views = [_rows(ctx, gen, (k,), range(ctx.Lq))[:, :l] for _ in range(B)]
+        for bs in (blocks, [_misaligned(b) for b in blocks], views):
+            got, c = _counted("decrypt_mac", lambda: ctx._decrypt_mac(bs))
+            assert c == launches, (B, c)
+            stack = torch.stack([b.contiguous() for b in bs])
+            assert torch.equal(got, tc.decrypt_mac_plain(ctx, stack)), (B, k, l)
+        got = ctx._decrypt_group(blocks)
+        assert torch.equal(got, tc.decrypt_plain(ctx, torch.stack(blocks)))
+    cts = [tc.Ciphertext(_rows(ctx, gen, (2 + i % 2,), range(1 + i % 3)), 2.0 ** 20)
+           for i in range(12)]
+    for a, b in zip(ctx._decrypt_many(cts), cts):
+        assert np.array_equal(a, ctx.decrypt_coeffs(b))
+
+
 def _sharded_vs_single(mesh_devices, streamed, n_groups):
     """HyDia on the card (3 groups at ring 512) served single-device and
     over the mesh: membership bit-equal, the real groups' index flags
