@@ -71,7 +71,22 @@ line is printed):
   8. the streamed HERS store at 2^20 (64 groups), as phase 5;
   9. Baseline (approach 1), GROTE (approach 2) and Blind-Match (approach 3)
      in memory at 2^15 vectors, each at its own depth (13, 18, 12), as
-     phase 3 (and but K2 for Baseline and GROTE).
+     phase 3 (and but K2 for Baseline and GROTE);
+ 10. the artifact (harness/run_artifact.py): the five approaches in memory
+     at 2^10 vectors through the latency CLI's run, from a `.dat` that
+     write_dataset writes into a temporary directory: five latency.csv
+     rows under the CLI's header, each membership True with vector 0 in
+     its index; each approach's scheme summary and seconds;
+ 11. serialization (utils/serial.py): the artifact's HyDia context and
+     in-memory DB saved to a temporary directory and loaded on the card:
+     keys and DB bit-equal to the saved ones, and a membership from the
+     loaded state bit-equal to the saved protocol's on the same query
+     ciphertext, with the same launches, and decrypting True;
+ 12. the accuracy campaign (harness/accuracy_campaign.py) at full size:
+     11,057 identities x 4 plus 50 queries x 2 borderline entries, 44,328
+     vectors in a streamed HyDia store (the last group padded), score
+     parity per query: TP 200, FN 0, parity <= 1e-4 and every
+     encrypted/plaintext decision disagreement inside the +-0.06 band.
 Sharded (parallel/sharded.py), reusing the protocols above: after phase 3,
 K12 (the modular sum of shard partials) against its plain version at the
 flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows
@@ -99,8 +114,10 @@ add, xor and shift at a lower one), and the JSON result line.
 
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -113,6 +130,8 @@ NVEC = 1 << 16          # in-memory HyDia and HERS
 NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
 NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
 NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
+LOG2N_ARTIFACT = 10     # the artifact's gallery, as tools/run_artifact.py
+CAMPAIGN = dict(queries=50, n_ids=11057, per_id=4, borderline=2)  # 44,328 vectors
 DIM = 512
 SEED = 0
 SEEDED_KERNELS = ("ct_dot_seeded", "seeded_pre", "seeded_c0")  # the streamed store's
@@ -1069,6 +1088,132 @@ def d2d_copy(proto, device, name):
         f"{torch.cuda.can_device_access_peer(1, 0)})")
 
 
+def artifact_phase(device):
+    """Phase 10: the artifact runner's five approaches in memory at
+    2^LOG2N_ARTIFACT through the latency CLI's run.  Returns the launches
+    and the HyDia protocol (kept from its setup) for phase 11."""
+    from image_matching_tpu_torch.harness import latency, run_artifact
+    from image_matching_tpu_torch.matching.protocol import MatchingProtocol
+    from image_matching_tpu_torch.ops import kernels
+
+    kept = {}
+    setup = MatchingProtocol.setup
+
+    def keep(approach, *a, **k):
+        proto = setup(approach, *a, **k)
+        if approach == 5:
+            kept["proto"] = proto
+        return proto
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "latency.csv")
+        MatchingProtocol.setup = staticmethod(keep)
+        kernels.reset_counts()
+        try:
+            rows, failures = run_artifact.run(LOG2N_ARTIFACT, csv_path=csv, device=device)
+        finally:
+            MatchingProtocol.setup = staticmethod(setup)
+        launches = kernels.counts()
+        with open(csv) as f:
+            text = f.read()
+    seconds = time.perf_counter() - t
+    for row in rows:
+        log(f"artifact {row['approach']}: {row['scheme']}; " + json.dumps(
+            {k: row[k] for k in ("query_enc_s", "membership_s", "membership_dec_s",
+                                 "index_s", "index_dec_s", "query_cts", "index_cts")})
+            + f" membership {row['membership_result']}, index {row['index_result'][:10]}")
+    log("artifact latency.csv:\n" + text.rstrip("\n"))
+    log(f"artifact: {len(rows)} approaches at 2^{LOG2N_ARTIFACT} in {seconds:.1f} s; "
+        "launches " + json.dumps(launches))
+    lines = text.splitlines(keepends=True)
+    assert lines[0] == latency.CSV_HEADER and len(lines) == 6, "artifact: latency.csv rows"
+    assert not failures, f"artifact: approaches {failures} failed (membership, index)"
+    return launches, kept["proto"]
+
+
+def serial_phase(proto, device):
+    """Phase 11: the HyDia context and in-memory DB of phase 10 saved and
+    loaded on the card; the loaded state's membership and its decryption
+    against the saved protocol's on one query ciphertext: the same
+    ciphertext, the same launches."""
+    from image_matching_tpu_torch.matching import receivers, senders
+    from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils import serial
+    from image_matching_tpu_torch.utils.io import gen_dataset
+
+    ctx, db, cfg = proto.ctx, proto.sender.db, proto.cfg
+    query, _ = gen_dataset(1 << LOG2N_ARTIFACT, DIM, seed=SEED)
+    qcts = proto.encrypt_query(query)
+    kernels.reset_counts()
+    mem = proto.membership(qcts)
+    assert proto.decrypt_membership(mem) is True
+    want = kernels.counts()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(times, "save_s", lambda: (serial.save_context(ctx, tmp),
+                                        serial.save_db(db, tmp, "hydia")))
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        ctx2 = timed(times, "load_context_s", lambda: serial.load_context(tmp, device=device))
+        db2 = timed(times, "load_db_s", lambda: serial.load_db(tmp, "hydia", device=device))
+    pairs = [("s_eval", ctx.s_eval, ctx2.s_eval), ("pk_b", ctx.pk_b, ctx2.pk_b),
+             ("pk_a", ctx.pk_a, ctx2.pk_a), ("relin_key", ctx.relin_key, ctx2.relin_key),
+             ("db", db.data, db2.data)]
+    assert len(ctx2._rot_sets) == len(ctx._rot_sets) and ctx2.rot_keys == ctx.rot_keys
+    for i, ((p, k), (p2, k2)) in enumerate(zip(ctx._rot_sets, ctx2._rot_sets)):
+        pairs += [(f"rotset_{i}_perms", p, p2), (f"rotset_{i}_keys", k, k2)]
+    for name, a, b in pairs:
+        assert b.device == a.device and b.dtype == a.dtype and torch.equal(a, b), \
+            f"serial: {name} differs after the round trip"
+    assert np.array_equal(ctx._s_eval_std, ctx2._s_eval_std)
+    assert np.array_equal(ctx._s_coeffs, ctx2._s_coeffs)
+    assert (db2.num_vectors, db2.scale, db2.bsgs, db2.n1) == \
+        (db.num_vectors, db.scale, db.bsgs, db.n1)
+    sender = senders.make_sender(5, ctx2, cfg, db2)
+    receiver = receivers.make_receiver(5, ctx2, cfg, db2.num_vectors)
+    kernels.reset_counts()
+    mem2 = timed(times, "membership_s", lambda: sender.run_membership(qcts))
+    member = receiver.decrypt_membership(mem2)
+    launches = kernels.counts()
+    log(f"serial: {size / 2 ** 30:.3f} GiB saved; " + json.dumps(times)
+        + f"; membership from the loaded state {member}, bit-equal "
+        f"{torch.equal(mem.data, mem2.data)}; launches " + json.dumps(launches))
+    assert torch.equal(mem.data, mem2.data) and mem2.scale == mem.scale, \
+        "serial: the loaded state's membership differs from the saved protocol's"
+    assert launches == want, f"serial: launches {launches} differ from {want}"
+    require_launched(launches, [k for k, v in want.items() if v > 0], "serial")
+    assert member is True, "serial: the loaded state's membership must decrypt True"
+    return launches
+
+
+def campaign_phase(device):
+    """Phase 12: the accuracy campaign at full size, streamed, with parity."""
+    from image_matching_tpu_torch.harness import accuracy_campaign
+    from image_matching_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    kernels.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        s = accuracy_campaign.campaign(**CAMPAIGN, csv_path=os.path.join(tmp, "accuracy.csv"),
+                                       device=device)
+    launches = kernels.counts()
+    seconds = time.perf_counter() - t
+    near = s["near_threshold"]
+    log("campaign summary " + json.dumps(s))
+    log(f"campaign: {s['db_vectors']} vectors, {s['queries']} queries in {seconds:.1f} s; "
+        f"encrypted {s['totals_encrypted']}, plaintext {s['totals_plaintext']}; "
+        f"{s['decision_disagreements_total']} decision disagreements, "
+        f"{near['enc_plain_decision_disagreements']} in the band of {near['entries_total']} "
+        f"entries; max parity {s['max_score_parity_err']:.3e}; launches " + json.dumps(launches))
+    enc = s["totals_encrypted"]
+    assert enc["TP"] == CAMPAIGN["per_id"] * CAMPAIGN["queries"] and enc["FN"] == 0, \
+        "campaign: TP/FN"
+    assert s["max_score_parity_err"] <= accuracy_campaign.PARITY_TOL, "campaign: score parity"
+    assert s["decision_disagreements_total"] == near["enc_plain_decision_disagreements"], \
+        "campaign: a decision disagreement outside the near band"
+    return launches
+
+
 def free_device():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1156,6 +1301,16 @@ def main():
         launches[key] = in_memory_phase(approach, cfg, device, smi, NVEC_SLOTS)[0]
         free_device()
         require_launched(launches[key], need, f"{APPROACH[approach]} in-memory 2^15")
+    # phases 10-12: the artifact, serialization of its HyDia state, the
+    # accuracy campaign
+    launches["artifact"], proto = artifact_phase(device)
+    require_launched(launches["artifact"], in_memory, "artifact")
+    launches["serial"] = serial_phase(proto, device)
+    del proto
+    free_device()
+    launches["campaign"] = campaign_phase(device)
+    free_device()
+    require_launched(launches["campaign"], streamed, "accuracy campaign")
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "image_matching_tpu"))
     assert not imported, f"the port's smoke run imported {imported}"

@@ -1641,6 +1641,28 @@ class CkksContext:
         return Ciphertext(carry if x.data.dim() == 4 else carry[0], x.scale)
 
     # ------------------------------------------------------------------
+    # introspection (reference printSchemeDetails / printCipherDetails,
+    # src/openFHE_wrapper.cpp:47-70); the JAX package's strings
+    # ------------------------------------------------------------------
+
+    def scheme_summary(self) -> str:
+        p = self.params
+        logqp = sum(math.log2(q) for q in self.all_primes)
+        return (
+            f"CKKS-RNS: ring dim {p.ring_dim}, batch {self.slots}, "
+            f"mult depth {p.mult_depth}, scaling 2^{p.scale_bits}, "
+            f"{self.Lq} limbs + {self.S} special, dnum {self.dnum}, "
+            f"log2(QP) = {logqp:.1f}, security {p.security}"
+        )
+
+    def cipher_summary(self, ct: Ciphertext) -> str:
+        return (
+            f"Ciphertext: {ct.ncomp} components, {ct.limbs} limbs "
+            f"(level {self.Lq - ct.limbs}), scale 2^{math.log2(ct.scale):.2f}, "
+            f"slots {self.slots}"
+        )
+
+    # ------------------------------------------------------------------
     # scale alignment
     # ------------------------------------------------------------------
 

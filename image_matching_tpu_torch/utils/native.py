@@ -1,6 +1,6 @@
 """The port's ctypes loader for the repository's host C++ runtime
-(``native/imtpu_native.cpp``: exact multi-limb CRT decode and the seeded
-host enroller).
+(``native/imtpu_native.cpp``: the ``.dat`` parser, exact multi-limb CRT
+decode and the seeded host enroller).
 
 The source is compiled with the host C++ compiler on first use into
 ``build/imtpu_torch/`` at the root of the checkout, named by a hash of the
@@ -61,6 +61,12 @@ def _lib():
     if path is None:
         return None
     lib = ctypes.CDLL(str(path))
+    lib.imtpu_parse_dat.restype = ctypes.c_long
+    lib.imtpu_parse_dat.argtypes = [
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS"),
+        ctypes.c_long,
+    ]
     lib.imtpu_crt_compose_centered.restype = None
     lib.imtpu_crt_compose_centered.argtypes = [
         np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS"),
@@ -86,6 +92,20 @@ def _lib():
 
 def available() -> bool:
     return _lib() is not None
+
+
+def parse_dat(path: str, max_vals: int) -> np.ndarray | None:
+    """Up to ``max_vals`` whitespace-separated numbers of a text file as
+    float64 (native/imtpu_native.cpp imtpu_parse_dat); None when the
+    library is missing or the file cannot be read."""
+    lib = _lib()
+    if lib is None:
+        return None
+    out = np.empty(max_vals, dtype=np.float64)
+    n = lib.imtpu_parse_dat(path.encode(), out, max_vals)
+    if n < 0:
+        return None
+    return out[:n]
 
 
 def enroll_group(m_plus_e: np.ndarray, primes: np.ndarray, psis: np.ndarray,

@@ -3,8 +3,9 @@
 Every module of image_matching_tpu_torch, and chip_smoke.py, imports in a
 fresh interpreter whose import system refuses jax and the JAX package
 (matched on the exact top-level name: image_matching_tpu_torch is
-allowed).  CkksContext, NttPlan, MatchingProtocol.setup, the carry helpers
-and make_mesh take the card unless the caller asks for the CPU, and
+allowed).  CkksContext, NttPlan, MatchingProtocol.setup, the carry helpers,
+the harnesses, serialization's loaders and make_mesh take the card unless
+the caller asks for the CPU, and
 without a GPU the default raises instead of carrying on on the CPU."""
 
 import inspect
@@ -19,11 +20,12 @@ import torch
 
 from image_matching_tpu_torch.ckks.context import CkksContext
 from image_matching_tpu_torch.ckks.params import SchemeParams, root_of_unity
+from image_matching_tpu_torch.harness import accuracy, accuracy_campaign, latency, run_artifact
 from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops.ntt import NttPlan
 from image_matching_tpu_torch.parallel.sharded import make_mesh
-from image_matching_tpu_torch.utils import carry
+from image_matching_tpu_torch.utils import carry, serial
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -66,7 +68,9 @@ def test_port_and_smoke_import_without_jax():
 
 def test_entry_points_default_to_the_card():
     for fn in (CkksContext.__init__, NttPlan.__init__, MatchingProtocol.setup, carry.ciphertext,
-               carry.base_db, carry.blind_db, carry.diag_db, carry.hers_db):
+               carry.base_db, carry.blind_db, carry.diag_db, carry.hers_db, latency.run,
+               accuracy.run, run_artifact.run, accuracy_campaign.campaign, serial.load_context,
+               serial.load_db):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
