@@ -86,7 +86,20 @@ line is printed):
      11,057 identities x 4 plus 50 queries x 2 borderline entries, 44,328
      vectors in a streamed HyDia store (the last group padded), score
      parity per query: TP 200, FN 0, parity <= 1e-4 and every
-     encrypted/plaintext decision disagreement inside the +-0.06 band.
+     encrypted/plaintext decision disagreement inside the +-0.06 band;
+ 13. the streamed store's on-disk caches (matching/streaming.py) for HyDia
+     at 2^16 vectors (4 groups, the caches' threshold) in a temporary
+     IMTPU_STORE_DIR, after the free disk space: (a) the native engine
+     writes the c0 cache (4 group files and meta.json); (b) without
+     meta.json, a resume re-enrolls exactly the newest group, from the
+     generator state (a) had there, leaving the trusted files untouched
+     and the store bit-equal to (a)'s; (c) a streamed setup on the device
+     engine loads the cache: no K6 launch, groups bit-equal to (a)'s,
+     membership True, the index equal to the plaintext set, parity <=
+     1e-4; (d) the pinned engine (resident_budget=0) cold and then warm
+     from the encode cache, with two contexts of one seed: c0 bit-equal and
+     no file written by the warm run.  Seconds and bytes of each step.
+     Phases 1-12 run with IMTPU_STORE_DIR="" (no cache).
 Sharded (parallel/sharded.py), reusing the protocols above: after phase 3,
 K12 (the modular sum of shard partials) against its plain version at the
 flag's shape, P = 4 x 16 rows, 4 and 8 one-row buffers and one of 16 rows
@@ -130,6 +143,7 @@ NVEC = 1 << 16          # in-memory HyDia and HERS
 NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
 NVEC_STREAM = 1 << 20   # streamed phases: 64 groups of 16384 vectors
 NVEC_PINNED = 1 << 17   # forced-pinned phase: 8 groups
+NVEC_CACHE = 1 << 16    # the caches' phase: 4 groups, the caches' threshold
 LOG2N_ARTIFACT = 10     # the artifact's gallery, as tools/run_artifact.py
 CAMPAIGN = dict(queries=50, n_ids=11057, per_id=4, borderline=2)  # 44,328 vectors
 DIM = 512
@@ -1214,6 +1228,129 @@ def campaign_phase(device):
     return launches
 
 
+def cache_phase(params, cfg, device, smi):
+    """Phase 13: the on-disk caches of the streamed HyDia store at
+    NVEC_CACHE in a temporary IMTPU_STORE_DIR.  Returns the launches of
+    (c)'s path (the setup from the cache, the query's encryption, the
+    queries and their decryption) and of (d)'s two pinned setups."""
+    import shutil
+    from image_matching_tpu_torch.ckks.context import CkksContext
+    from image_matching_tpu_torch.matching import streaming
+    from image_matching_tpu_torch.matching.protocol import MatchingProtocol
+    from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.utils.io import gen_dataset
+
+    name = f"cache 2^{NVEC_CACHE.bit_length() - 1}"
+    query, db = gen_dataset(NVEC_CACHE, DIM, seed=SEED)
+    times, sizes = {}, {}
+
+    def tree(d):
+        """Each file of d: (inode, mtime, bytes), which a rewrite changes."""
+        return {f: (st.st_ino, st.st_mtime_ns, st.st_size)
+                for f, st in ((f, os.stat(os.path.join(d, f))) for f in sorted(os.listdir(d)))}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["IMTPU_STORE_DIR"] = tmp
+        try:
+            free = shutil.disk_usage(tmp).free
+            log(f"{name}: IMTPU_STORE_DIR in {tmp}, {free / 1e9:.1f} GB free")
+            # (a) the native engine writes the c0 cache; the generator's
+            # state before each group's draw is kept for (b)
+            ctx = CkksContext(params, seed=SEED, device=device)
+            host_enroll, states, enrolled = ctx.encrypt_seeded_batch_host, {}, []
+
+            def spy(vals, seed, group, *a, **k):
+                states.setdefault(group, ctx._rng.bit_generator.state)
+                enrolled.append(group)
+                return host_enroll(vals, seed, group, *a, **k)
+
+            ctx.encrypt_seeded_batch_host = spy
+            store_a = timed(times, "a_native_write_s", lambda: streaming.enroll_diag_streamed(
+                ctx, cfg, db, resident_budget=0, engine="native", verbose=True))
+            [cdir] = [os.path.join(tmp, d) for d in os.listdir(tmp)]
+            G = store_a.num_groups
+            files = tree(cdir)
+            assert list(files) == [f"g{g:04d}.npy" for g in range(G)] + ["meta.json"] \
+                and G == 4, f"{name}: (a) the cache holds {list(files)}"
+            sizes["c0_cache_bytes"] = sum(st[2] for st in files.values())
+            # (b) an interrupted run: no meta.json; the resume trusts all
+            # but the newest file and re-enrolls that one from (a)'s state
+            os.remove(os.path.join(cdir, "meta.json"))
+            enrolled.clear()
+            ctx._rng.bit_generator.state = states[G - 1]
+            store_b = timed(times, "b_resume_s", lambda: streaming.enroll_diag_streamed(
+                ctx, cfg, db, resident_budget=0, engine="native", verbose=True))
+            after = tree(cdir)
+            assert enrolled == [G - 1], f"{name}: (b) re-enrolled groups {enrolled}"
+            assert "meta.json" in after and all(after[f] == files[f] for f in list(files)[: G - 1]), \
+                f"{name}: (b) a trusted file was rewritten"
+            assert all(torch.equal(a, b) for a, b in zip(store_a.groups, store_b.groups)), \
+                f"{name}: (b) the resumed store differs from (a)'s"
+            assert all(g.is_pinned() for g in store_a.groups + store_b.groups)
+            del store_b, ctx
+            free_device()
+            # (c) a streamed setup on the device engine loads the cache
+            kernels.reset_counts()
+            proto = setup_split(times, lambda: MatchingProtocol.setup(
+                5, db, cfg, seed=SEED, device=device, streamed=True, engine="device"))
+            k6 = {k: kernels.counts()[k] for k in ("seeded_pre", "seeded_c0")}
+            store = proto.sender.store
+            equal = all(torch.equal(a.to(device), b) for a, b in zip(store_a.groups, store.groups))
+            del store_a
+            qcts = timed(times, "c_encrypt_query_s", lambda: proto.encrypt_query(query))
+            mem = timed(times, "c_membership_s", lambda: proto.membership(qcts))
+            idx = timed(times, "c_index_s", lambda: proto.index(qcts))
+            member = proto.decrypt_membership(mem)
+            found = sorted(proto.decrypt_index(idx))
+            launches = kernels.counts()
+            sims, expect = expected_matches(query, db, cfg.match_threshold)
+            vals = proto.receiver.decrypt_scores(proto.sender.compute_similarity(qcts))[:NVEC_CACHE]
+            err = float(np.abs(vals - sims).max())
+            times["c_load_s_per_group"] = times["enroll_s"] / G
+            log(f"{name} (c): {store.resident_count()} of {G} groups resident; K6 during the "
+                f"setup {json.dumps(k6)}; groups bit-equal to (a)'s {equal}; membership "
+                f"{member}; index {found[:10]} ({len(found)}), expected {expect[:10]}; parity "
+                f"{err:.3e}")
+            assert k6 == {"seeded_pre": 0, "seeded_c0": 0}, f"{name}: (c) K6 ran: not loaded"
+            assert equal, f"{name}: (c) the loaded groups differ from (a)'s store"
+            assert member is True and found == expect and 0 in found, f"{name}: (c) decisions"
+            assert err <= 1e-4, f"{name}: (c) score parity above the 1e-4 bar"
+            del proto, store, qcts, mem, idx
+            free_device()
+            # (d) the pinned engine: cold (writes the encode cache), warm
+            # (reads it), two contexts of one seed
+            kernels.reset_counts()
+            stores = []
+            for step in ("cold", "warm"):
+                ctx = CkksContext(params, seed=SEED, device=device)
+                if step == "warm":
+                    [edir] = [os.path.join(tmp, d) for d in os.listdir(tmp)
+                              if d.startswith("enc_")]
+                    enc_files = tree(edir)
+                stores.append(timed(times, f"d_pinned_{step}_enroll_s",
+                                    lambda: streaming.enroll_diag_streamed(
+                                        ctx, cfg, db, resident_budget=0, engine="pinned",
+                                        verbose=True)))
+                del ctx
+            pinned_launches = kernels.counts()
+            assert tree(edir) == enc_files, f"{name}: (d) the warm run wrote a file"
+            assert list(enc_files) == [f"g{g:04d}.npy" for g in range(G)]
+            sizes["encode_cache_bytes"] = sum(st[2] for st in enc_files.values())
+            cold, warm = stores
+            assert all(g.is_pinned() for g in cold.groups + warm.groups)
+            assert all(torch.equal(a, b) for a, b in zip(cold.groups, warm.groups)), \
+                f"{name}: (d) the warm c0 differs from the cold c0"
+            del stores, cold, warm
+        finally:
+            os.environ["IMTPU_STORE_DIR"] = ""
+    free_device()
+    per_group = {f"{k}_per_group": times[k] / G
+                 for k in ("a_native_write_s", "d_pinned_cold_enroll_s", "d_pinned_warm_enroll_s")}
+    log(f"{name} on {smi}: " + json.dumps({**times, **per_group, **sizes})
+        + " launches " + json.dumps(launches) + " pinned launches " + json.dumps(pinned_launches))
+    return launches, pinned_launches
+
+
 def free_device():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1231,6 +1368,9 @@ def main():
     from image_matching_tpu_torch.utils import native
 
     device = torch.device("cuda:0")
+    # no on-disk cache before phase 13: setups stay comparable and write
+    # nothing into the tree
+    os.environ["IMTPU_STORE_DIR"] = ""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1311,6 +1451,12 @@ def main():
     launches["campaign"] = campaign_phase(device)
     free_device()
     require_launched(launches["campaign"], streamed, "accuracy campaign")
+    # phase 13: the on-disk caches; the cached setup launches no K6, the
+    # pinned setups do
+    launches["cache"], launches["cache_pinned"] = cache_phase(params, cfg, device, smi)
+    require_launched(launches["cache"], [k for k in streamed if k not in SEEDED_KERNELS[1:]],
+                     "cached streamed setup")
+    require_launched(launches["cache_pinned"], SEEDED_KERNELS[1:], "pinned setups")
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "image_matching_tpu"))
     assert not imported, f"the port's smoke run imported {imported}"

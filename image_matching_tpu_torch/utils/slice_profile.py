@@ -25,6 +25,10 @@ alike.  Each profile also counts the memory copies by kind (a pageable
 host-to-device copy blocks the host until the stream drains).  After the
 setup it prints the launches by shape of the encryption kernels (K6, the
 streamed enrollment; K10, the in-memory enrollment and the query).
+With --streamed a complete c0 cache of the same key (``IMTPU_STORE_DIR``,
+default ``<repo>/.dbcache``; ``harness/enroll_cache.py`` writes one) is
+loaded in place of the enrollment, and the store's progress lines go to
+stderr.
 Prints the summary and writes it with the profiler tables to --out.
 """
 
@@ -82,7 +86,7 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
     hers = approach == 4
     if streamed:
         enroll = streaming.enroll_hers_streamed if hers else streaming.enroll_diag_streamed
-        store = timed(setup, "enroll_s", lambda: enroll(ctx, cfg, db))
+        store = timed(setup, "enroll_s", lambda: enroll(ctx, cfg, db, verbose=True))
         sender = (streaming.StreamedHersSender if hers else streaming.StreamedDiagonalSender)(
             ctx, cfg, store)
         say(f"store: {store.num_groups} groups, {store.resident_count()} resident, "

@@ -24,7 +24,7 @@ from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_ma
                                                    seeded_c0_plain, seeded_pre_plain)
 from image_matching_tpu_torch.ckks.params import (SchemeParams, compute_required_depth,
                                                   root_of_unity)
-from image_matching_tpu_torch.matching import senders
+from image_matching_tpu_torch.matching import senders, streaming
 from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
@@ -354,6 +354,39 @@ def test_streamed_slice_on_card_matches_cpu(tier, monkeypatch):
         assert torch.equal(a.data, b.data.cpu())
     assert pg.decrypt_membership(mg) is True
     assert pg.decrypt_index(ig) == [0]
+
+
+def test_c0_cache_loads_on_card(tmp_path, monkeypatch):
+    """A c0 cache written by the native engine on the card loads under a
+    budget of two of its four groups: the leading two resident, the rest
+    page-locked, the groups equal to the writer's store, no K6 launched,
+    and a membership equal to the writer's protocol's on the same query
+    ciphertext and the same keys."""
+    dev = _device()
+    monkeypatch.setenv("IMTPU_STORE_DIR", str(tmp_path))
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=512, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(1000, 64, seed=1)  # 4 groups of 256
+    writer = MatchingProtocol.setup(5, db, cfg, ctx=CkksContext(params, seed=7, device=dev),
+                                    streamed=True, resident_budget=0, engine="native")
+    [cdir] = list(tmp_path.iterdir())
+    assert (cdir / "meta.json").exists() and writer.sender.store.num_groups == 4
+    gbytes = writer.sender.store.group_bytes()
+    kernels.reset_counts()
+    store = streaming.enroll_diag_streamed(writer.ctx, cfg, db, resident_budget=2 * gbytes,
+                                           engine="device")
+    assert kernels.counts()["seeded_pre"] == kernels.counts()["seeded_c0"] == 0
+    assert store.resident == [True, True, False, False]
+    assert all(g.is_cuda for g in store.groups[:2])
+    assert all(g.is_pinned() for g in store.groups[2:])
+    for a, b in zip(writer.sender.store.groups, store.groups):
+        assert torch.equal(a.cpu(), b.cpu())
+    qcts = writer.encrypt_query(query)
+    want = writer.membership(qcts)
+    got = streaming.StreamedDiagonalSender(writer.ctx, cfg, store).run_membership(qcts)
+    assert torch.equal(want.data, got.data) and got.scale == want.scale
+    assert writer.decrypt_membership(got) is True
 
 
 def test_launch_error_raises():

@@ -4,9 +4,9 @@ Every module of image_matching_tpu_torch, and chip_smoke.py, imports in a
 fresh interpreter whose import system refuses jax and the JAX package
 (matched on the exact top-level name: image_matching_tpu_torch is
 allowed).  CkksContext, NttPlan, MatchingProtocol.setup, the carry helpers,
-the harnesses, serialization's loaders and make_mesh take the card unless
-the caller asks for the CPU, and
-without a GPU the default raises instead of carrying on on the CPU."""
+the harnesses (the enrollment CLI too), serialization's loaders and
+make_mesh take the card unless the caller asks for the CPU, and without a
+GPU the default raises instead of carrying on on the CPU."""
 
 import inspect
 import os
@@ -20,7 +20,8 @@ import torch
 
 from image_matching_tpu_torch.ckks.context import CkksContext
 from image_matching_tpu_torch.ckks.params import SchemeParams, root_of_unity
-from image_matching_tpu_torch.harness import accuracy, accuracy_campaign, latency, run_artifact
+from image_matching_tpu_torch.harness import (accuracy, accuracy_campaign, enroll_cache, latency,
+                                              run_artifact)
 from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops.ntt import NttPlan
@@ -48,7 +49,8 @@ import image_matching_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(image_matching_tpu_torch.__path__,
                                                "image_matching_tpu_torch.")]
 assert {"image_matching_tpu_torch.parallel.sharded",
-        "image_matching_tpu_torch.parallel.multihost"} <= set(names), names
+        "image_matching_tpu_torch.parallel.multihost",
+        "image_matching_tpu_torch.harness.enroll_cache"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
@@ -70,7 +72,7 @@ def test_entry_points_default_to_the_card():
     for fn in (CkksContext.__init__, NttPlan.__init__, MatchingProtocol.setup, carry.ciphertext,
                carry.base_db, carry.blind_db, carry.diag_db, carry.hers_db, latency.run,
                accuracy.run, run_artifact.run, accuracy_campaign.campaign, serial.load_context,
-               serial.load_db):
+               serial.load_db, enroll_cache.enroll):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
