@@ -117,6 +117,15 @@ launched.  Where the machine has 2 or more cards, each also
 runs over cuda:0..k-1 (k = min(count, 4)), one issuing thread per card,
 and prints each card's window (issue start, issue end, card done), else
 one line says why not.
+Tensor parallelism (parallel/tensor.py), after the sharded HyDia 2^16
+runs: its kernel variants (K1's column and row passes alone, K4 and K7
+reading a full-width source) against their plain versions at ring 32768
+and D = 4, bit-exact; TPScenario's membership and index over one-card
+meshes of 4 slot shards and, where the machine has 2 or more cards, over
+cuda:0..k-1 (k = 4, or 2), bit-equal to one device with the decisions
+right, the variants and every kernel of the unsharded queries launched and
+K1's whole transform never; then the bytes and host times of a sharded
+NTT's and rotation's exchanges beside one device's.
 K11 (standalone residue arithmetic) must launch on every path; nothing of
 jax or of the JAX package may be imported.  The last lines are the card's
 name and power limit, one JSON line of per-kernel results (with each
@@ -136,8 +145,8 @@ import time
 import numpy as np
 import torch
 
-from image_matching_tpu_torch.utils.benchkit import (ADD, MUL, SLEEP_CYCLES_PER_CALL, THREEFRY_OPS,
-                                                     bound, ntt_ops)
+from image_matching_tpu_torch.utils.benchkit import (ADD, BUTTERFLY_OPS, MUL, SLEEP_CYCLES_PER_CALL,
+                                                     THREEFRY_OPS, bound, ntt_ops)
 
 NVEC = 1 << 16          # in-memory HyDia and HERS
 NVEC_SLOTS = 1 << 15    # in-memory Baseline, GROTE, Blind-Match
@@ -1090,6 +1099,219 @@ def sharded_phase(name, streamed, res, launches, device, smi, shard_counts=(4, 3
     return out
 
 
+def check_tp_kernels(tp, rows, device):
+    """TP phase: each slot-shard kernel variant (kernels.TP_KERNELS) against
+    its plain version, bit-exact, at ring 32768 and D = tp.mesh.size, on
+    shard 1's slice (the main path's shapes: 8 x 20 limbs for K1's passes;
+    31 hoisted rotations for K4's full-width digits; the giant steps, R =
+    15, for K7's full-width c0).  The plain versions are the split stages
+    (ops/ntt.py) and ks_mac_plain / sub_scale_plain on the same operands."""
+    from image_matching_tpu_torch.ckks import context as tc
+    from image_matching_tpu_torch.ckks.context import CkksContext
+    from image_matching_tpu_torch.ops.ntt import ntt_fwd_stages, ntt_inv_stages, permute_rows
+
+    record = recorder(rows)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(77)
+    ctx, D = tp.ctx, tp.mesh.size
+    sh = 1 % D
+    c = tp.shards[sh]
+    plan, P, n, Lq = ctx.plan, ctx.all_primes, ctx.n, ctx.Lq
+    w, a = n // D, plan.logn - 8
+    E, off = 1 << a, sh * (1 << a) // D
+    mine = lambda t: t[..., sh * w:(sh + 1) * w].contiguous()  # noqa: E731
+    ext = ctx.ext_limbs(Lq)
+    L, B = len(ext), 8
+    idx = plan.limb_index(ext).long()
+    psis, ipsis, q = plan.psis[idx], plan.ipsis[idx], plan.q[idx].long()
+    ninv = plan.ninv[idx].long().view(L, 1)
+    x = rand_residues((B, L, w), [P[i] for i in ext], gen, device)
+    full = rand_residues((B, L, n), [P[i] for i in ext], gen, device)
+    perms = torch.from_numpy(np.stack([plan.auto_perm(ctx.rotation_galois(r))
+                                       for r in range(1, B + 1)])).to(device)
+    own = mine(perms)
+    out = torch.empty_like(x)
+    label = f"{B}x{L} limbs of N/{D}, shard {sh}"
+    data = 2 * x.numel() * 4
+    tws = 2 * L * w * 4  # the row pass's twiddles and their Shoup companions
+    cols_ops, rows_ops = (B * L * (w // 2) * st * BUTTERFLY_OPS for st in (a, 8))
+    record("ntt_fwd_cols", label, plan.launch_pass(out, x, ext, False, True),
+           ntt_fwd_stages(x.long(), psis, q, 1, E, inner=w // E).int(),
+           lambda: plan.launch_pass(out, x, ext, False, True),
+           lambda: ntt_fwd_stages(x.long(), psis, q, 1, E, inner=w // E).int(), data, cols_ops)
+    y = x.clone()
+    record("ntt_inv_cols", label + ", in place", plan.launch_pass(y, y, ext, True, True),
+           (ntt_inv_stages(x.long(), ipsis, q, 1, E, inner=w // E) * ninv % q.view(L, 1)).int(),
+           lambda: plan.launch_pass(y, y, ext, True, True),
+           lambda: (ntt_inv_stages(x.long(), ipsis, q, 1, E, inner=w // E) * ninv
+                    % q.view(L, 1)).int(), data, cols_ops + B * L * w * MUL)
+    for name, inverse, stages in (("ntt_fwd_rows", False, ntt_fwd_stages),
+                                  ("ntt_inv_rows", True, ntt_inv_stages)):
+        tw = ipsis if inverse else psis
+        record(name, label + f", blk_off {off}", plan.launch_pass(out, x, ext, inverse, False, off),
+               stages(x.long(), tw, q, E, n, nblk=D, blk=sh).int(),
+               lambda: plan.launch_pass(out, x, ext, inverse, False, off),
+               lambda: stages(x.long(), tw, q, E, n, nblk=D, blk=sh).int(), data + tws, rows_ops)
+    src = mine(permute_rows(full, perms))
+    record("ntt_inv_rows", label + ", a rotation gathered from the full-width source",
+           plan.launch_pass(out, full, ext, True, False, off, own),
+           ntt_inv_stages(src.long(), ipsis, q, E, n, nblk=D, blk=sh).int(),
+           lambda: plan.launch_pass(out, full, ext, True, False, off, own),
+           lambda: ntt_inv_stages(mine(permute_rows(full, perms)).long(), ipsis, q, E, n,
+                                  nblk=D, blk=sh).int(),
+           data + tws + own.numel() * 4, rows_ops)
+    del x, full, out, y, src
+    # K4: the hoisted baby steps' MAC reading the all-gathered digit stack
+    R = 31
+    digs = rand_residues((ctx.dnum, L, n), [P[i] for i in ext], gen, device)
+    keys = rand_residues((R, ctx.dnum, 2, ctx.Ltot, w), P, gen, device)
+    rp = mine(torch.from_numpy(np.stack([plan.auto_perm(ctx.rotation_galois(r))
+                                         for r in range(1, R + 1)])).to(device))
+    qe, rinve = c._qrow(ext)
+    record("ks_mac_wide", f"R={R} hoisted, digits [3,{L},N], shard {sh} of {D}",
+           CkksContext._ks_mac(c, digs, keys, Lq, rp),
+           tc.ks_mac_plain(digs, keys, Lq, Lq, qe, rinve, rp),
+           lambda: CkksContext._ks_mac(c, digs, keys, Lq, rp),
+           lambda: tc.ks_mac_plain(digs, keys, Lq, Lq, qe, rinve, rp),
+           (digs.numel() + R * ctx.dnum * 2 * L * w + R * w + R * 2 * L * w) * 4,
+           R * 2 * L * w * ctx.dnum * (MUL + ADD))
+    del digs, keys
+    # K7: the giant steps' mod-down adding c0 gathered from the full width
+    R = 15
+    rp = mine(torch.from_numpy(np.stack([plan.auto_perm(ctx.rotation_galois(32 * r))
+                                         for r in range(1, R + 1)])).to(device))
+    comp = rand_residues((R, 2, L, w), [P[i] for i in ext], gen, device)
+    t = rand_residues((R, 2, Lq, w), P[:Lq], gen, device)
+    add = rand_residues((R, 1, Lq, n), P[:Lq], gen, device)
+    pinv = c._pinv(Lq)
+    record("sub_scale_wide", f"R={R}x2x{Lq} limbs, c0 [R,1,{Lq},N] gathered, shard {sh} of {D}",
+           CkksContext._sub_scale(c, comp, t, pinv[1], add, rp),
+           tc.sub_scale_plain(c, comp, t, pinv[0], add, rp),
+           lambda: CkksContext._sub_scale(c, comp, t, pinv[1], add, rp),
+           lambda: tc.sub_scale_plain(c, comp, t, pinv[0], add, rp),
+           (R * (2 + 2 + 1 + 2) * Lq * w + R * w) * 4,
+           R * 2 * Lq * w * (MUL + 2 * ADD) + R * Lq * w * ADD)
+
+
+def tp_costs(tp, proto, qcts, label):
+    """One NTT's and one rotation's exchange over the mesh: the bytes that
+    cross shards (``Exchange.bytes``) and host-clock times (every card
+    synced) of 10 sharded transforms of [2, 14, N] (two all-to-alls each)
+    and of their all-to-alls alone, beside one device's transform; of 10
+    sharded rotations by 1 beside one device's."""
+    ctx, D = proto.ctx, tp.mesh.size
+    lim = ctx.q_limbs(ctx.Lq)
+    data = qcts[0].data.contiguous()  # [2, 14, N]
+    reps = 10
+
+    def sync_all():
+        for d in tp.mesh.distinct():
+            torch.cuda.synchronize(d)
+
+    def host_s(fn):
+        fn()
+        sync_all()
+        t = time.perf_counter()
+        fn()
+        sync_all()
+        return (time.perf_counter() - t) / reps
+
+    ct = type(qcts[0])(data, qcts[0].scale)
+    parts = tp.run_shards(lambda s, c: tp._local(s, ct).data)
+    R, cw = (1 << (ctx.plan.logn - 8)) // D, 256 // D
+    before = dict(tp.ex.bytes)
+    tp.run_shards(lambda s, c: c.plan.fwd(parts[s], lim))
+    ntt_bytes = tp.ex.bytes["all_to_all"] - before["all_to_all"]
+    before = dict(tp.ex.bytes)
+    tp.rotate(ct, 1)
+    rot_bytes = {k: v - before[k] for k, v in tp.ex.bytes.items()}
+
+    def a2a(s, c):
+        for _ in range(reps):
+            cols = tp.ex.all_to_all(s, parts[s].view(2, -1, R, D, cw), -2, -3)
+            tp.ex.all_to_all(s, cols, -3, -2)
+
+    out = {
+        "ntt_exchange_bytes": ntt_bytes,
+        "ntt_sharded_ms": 1e3 * host_s(lambda: tp.run_shards(
+            lambda s, c: [c.plan.fwd(parts[s], lim) for _ in range(reps)])),
+        "ntt_all_to_alls_ms": 1e3 * host_s(lambda: tp.run_shards(a2a)),
+        "ntt_one_device_ms": 1e3 * host_s(lambda: [ctx.plan.fwd(data, lim) for _ in range(reps)]),
+        "rotation_exchange_bytes": rot_bytes,
+        "rotation_sharded_ms": 1e3 * host_s(lambda: tp.run_shards(
+            lambda s, c: [c.rotate(type(ct)(parts[s], ct.scale), 1) for _ in range(reps)])),
+        "rotation_one_device_ms": 1e3 * host_s(lambda: [ctx.rotate(ct, 1) for _ in range(reps)]),
+    }
+    log(f"TP costs, {label} ([2,{ctx.Lq},N] at N = {ctx.n}; host clock, every card synced): "
+        + json.dumps(out))
+
+
+def tp_phase(name, res, launches, rows, device, smi):
+    """Slot-sharded tensor parallelism (parallel/tensor.py) over the
+    protocol of phase 3 (`res`): TPScenario's membership and index over a
+    one-card mesh of 4 shards and, where the machine has 2 or more cards,
+    over cuda:0..k-1 (k = 4, or 2 on a machine of 2 or 3 cards).  Each
+    run: the membership ciphertext and index flags bit-equal to one
+    device's, the decisions equal to the plaintext set, the slot shards'
+    kernel variants and every kernel the unsharded queries launched
+    (outside encryption, decryption and K1's whole transform, which the
+    passes replace: none of those may launch) counted in the run; first
+    the variants against their plain versions (`check_tp_kernels`), then
+    each mesh's exchange bytes and times (`tp_costs`).  Returns each run's
+    launches, by path."""
+    from image_matching_tpu_torch.ckks.context import Ciphertext
+    from image_matching_tpu_torch.ops import kernels
+    from image_matching_tpu_torch.parallel import sharded, tensor
+
+    proto, qcts, mem, idx, expect = (res[k] for k in ("proto", "qcts", "mem", "idx", "expect"))
+    skip = ENCRYPT_KERNELS + ("decrypt_mac", "ntt_fwd", "ntt_inv", "mod_sum")
+    need = [k for k, v in launches.items() if v > 0 and k not in skip] + list(kernels.TP_KERNELS)
+    meshes = [("4 shards on one card", [device] * 4)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        k = 4 if cards >= 4 else 2
+        meshes.append((f"{k} shards on {k} cards", [torch.device("cuda", i) for i in range(k)]))
+    else:
+        log(f"{name} TP: the mesh over real cards was not run: this machine has {cards} "
+            "CUDA device (it needs 2 or more)")
+    out = {}
+    for label, devs in meshes:
+        times = {}
+        scen = timed(times, "construct_s", lambda: tensor.TPScenario(
+            proto.sender, sharded.make_mesh(devices=devs)))
+        if label == meshes[0][0]:
+            check_tp_kernels(scen.tp, rows, device)
+        kernels.reset_counts()
+        b0 = dict(scen.tp.ex.bytes)
+        tmem = timed(times, "membership_first_s", lambda: scen.membership(qcts))
+        mem_bytes = {k: v - b0[k] for k, v in scen.tp.ex.bytes.items()}
+        mem_counts = {k: v for k, v in kernels.counts().items() if v}
+        tidx = timed(times, "index_first_s", lambda: scen.index(qcts))
+        counts = kernels.counts()
+        for rep in (1, 2):
+            timed(times, f"membership_{rep}_s", lambda: scen.membership(qcts))
+            timed(times, f"index_{rep}_s", lambda: scen.index(qcts))
+        same = (tmem.scale == mem.scale and torch.equal(tmem.data.to(device), mem.data)
+                and len(tidx) == len(idx)
+                and all(torch.equal(a.data, b.data.to(device)) for a, b in zip(idx, tidx)))
+        member = proto.decrypt_membership(Ciphertext(tmem.data.to(device), tmem.scale))
+        found = sorted(proto.decrypt_index([Ciphertext(f.data.to(device), f.scale) for f in tidx]))
+        log(f"{name} TP, {label} on {smi}: " + json.dumps(times)
+            + f" membership {member}; index {found[:10]} ({len(found)}); bit-equal to one "
+            f"device: {same}; exchange bytes a membership {mem_bytes}; launches a "
+            f"membership {json.dumps(mem_counts)}; with the index " + json.dumps(counts))
+        assert same, f"{name} TP {label}: not bit-equal to one device"
+        assert member is True and found == expect, f"{name} TP {label}: decisions differ"
+        require_launched(counts, need, f"{name} TP, {label}")
+        assert counts["ntt_fwd"] == counts["ntt_inv"] == 0, \
+            f"{name} TP {label}: K1's whole transform launched on the sharded path"
+        tp_costs(scen.tp, proto, qcts, label)
+        out[label] = counts
+        del scen, tmem, tidx
+        free_device()
+    return out
+
+
 def d2d_copy(proto, device, name):
     """One DB group copied from card 0 to card 1, CUDA events, mean of 5."""
     sender = proto.sender
@@ -1396,7 +1618,8 @@ def main():
     free_device()
     # K12: sharded paths only; K5: its c1 is drawn inside ct_dot_seeded on
     # every path, and checked in phase 2 alone
-    unsharded = [k for k in kernels.KERNELS if k not in ("psum_mod", "expand_c1")]
+    unsharded = [k for k in kernels.KERNELS
+                 if k not in ("psum_mod", "expand_c1") + kernels.TP_KERNELS]
     in_memory = [k for k in unsharded if k not in SEEDED_KERNELS]
     streamed = [k for k in unsharded if k != "ct_dot"]  # the seeded variant contracts
     slot_packing = [k for k in in_memory if k != "ct_dot"]
@@ -1412,6 +1635,10 @@ def main():
     require_launched(launches["hydia_in_memory"], in_memory, "HyDia in-memory")
     check_psum_mod(rows, res["mem"].limbs, device)
     sharded("hydia_in_memory", "HyDia in-memory 2^16", False, res, (4, 2, 3))
+    # slot-sharded tensor parallelism over the same protocol
+    for label, counts in tp_phase("HyDia in-memory 2^16", res, launches["hydia_in_memory"], rows,
+                                  device, smi).items():
+        launches[f"hydia_in_memory_tp {label}"] = counts
     del res
     free_device()
     # phase 5: streamed at 2^20, then sharded; 6: forced pinned, sharded inside
@@ -1484,6 +1711,14 @@ def main():
         "modarith": ("modarith.cu", "image_matching_tpu/ops/modmath.py:90"),
         "mod_sum": ("modarith.cu", "image_matching_tpu/matching/senders.py:45"),
         "psum_mod": ("psum_mod.cu", "image_matching_tpu/parallel/sharded.py:37"),
+        # tensor parallelism's variants (image_matching_tpu/parallel/tensor.py
+        # partitions the same kernels over the slot axis)
+        "ntt_fwd_cols": ("ntt.cu", "image_matching_tpu/ops/ntt.py:231"),
+        "ntt_fwd_rows": ("ntt.cu", "image_matching_tpu/ops/ntt.py:231"),
+        "ntt_inv_rows": ("ntt.cu", "image_matching_tpu/ops/ntt.py:260"),
+        "ntt_inv_cols": ("ntt.cu", "image_matching_tpu/ops/ntt.py:260"),
+        "ks_mac_wide": ("keyswitch.cu", f"{ctx_py}:940"),
+        "sub_scale_wide": ("rescale.cu", f"{ctx_py}:890"),
     }
     # launches: the sum over every driven path (each counted from 0 just
     # before it and read just after its decryption); launches_by_path has

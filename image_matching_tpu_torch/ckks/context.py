@@ -171,7 +171,9 @@ def ks_mac_plain(digs: torch.Tensor, ksk: torch.Tensor, l: int, Lq: int,
 
     digs: [ndig, E, N] (shared) or [R, ndig, E, N]; ksk: [dnum, 2, Ltot, N]
     (shared) or [R, dnum, 2, Ltot, N]; perms: None or int32 [R, N];
-    q, rinv: int64 [E, 1] over the extended limbs.  -> [R, 2, E, N]."""
+    q, rinv: int64 [E, 1] over the extended limbs.  -> [R, 2, E, N].  With
+    perms, digs may be wider than N (a slot shard's all-gathered stack,
+    perms holding global indices)."""
     rows = torch.cat([ksk[..., :l, :], ksk[..., Lq:, :]], dim=-2)
     if digs.dim() == 3:
         digs = digs[None]
@@ -180,7 +182,7 @@ def ks_mac_plain(digs: torch.Tensor, ksk: torch.Tensor, l: int, Lq: int,
     if perms is not None:
         Rn = perms.shape[0]
         digs = digs.expand(Rn, *digs.shape[1:])
-        idx = perms.long()[:, None, None, :].expand(Rn, *digs.shape[1:])
+        idx = perms.long()[:, None, None, :].expand(Rn, *digs.shape[1:-1], perms.shape[-1])
         digs = torch.gather(digs, -1, idx)
     acc0 = acc1 = None
     for j in range(digs.shape[1]):
@@ -266,11 +268,12 @@ def add_rotated_plain(out: torch.Tensor, add: torch.Tensor,
     """out [R, 2, l, N] with add [Ra, k, l, N] (Ra in {1, R}, k in {1, 2})
     added to its first k components, add's coefficients gathered through
     perms [R, N] when given: c0 o sigma + d0 of a rotation (k = 1), c + d
-    of a relinearization (k = 2)."""
+    of a relinearization (k = 2).  A gathered addend may be wider than out
+    (a slot shard's all-gathered c0, perms holding global indices)."""
     R, k = out.shape[0], add.shape[1]
     a = add.expand(R, *add.shape[1:])
     if perms is not None:
-        idx = perms.long()[:, None, None, :].expand(R, k, *add.shape[2:])
+        idx = perms.long()[:, None, None, :].expand(R, k, add.shape[2], perms.shape[-1])
         a = torch.gather(a, -1, idx)
     head = mm.mod_add(a, out[:, :k], q)
     return head if k == out.shape[1] else torch.cat([head, out[:, k:]], dim=1)
@@ -499,16 +502,22 @@ class CkksContext:
             return self
         return self._copied_to(dev)
 
-    def _copied_to(self, dev: torch.device) -> "CkksContext":
-        """``replica``'s copy, made even onto this context's own device."""
+    def _copied_to(self, dev: torch.device,
+                   take: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                   ) -> "CkksContext":
+        """``replica``'s copy, made even onto this context's own device;
+        ``take`` (default: a copy onto ``dev``) makes each key and table of
+        the copy from this context's (a slot shard's slice,
+        parallel/tensor.py).  The NTT tables are copied whole."""
+        if take is None:
+            take = lambda v: v.to(dev, copy=True)  # noqa: E731
         r = copy.copy(self)
         for k, v in vars(self).items():
             if isinstance(v, torch.Tensor):
-                setattr(r, k, v.to(dev, copy=True))
+                setattr(r, k, take(v))
         r.device = dev
         r.plan = self.plan.replica(dev)
-        r._rot_sets = [(p.to(dev, copy=True), k.to(dev, copy=True))
-                      for p, k in self._rot_sets]
+        r._rot_sets = [(take(p), take(k)) for p, k in self._rot_sets]
         r.rot_keys = {g: dict(sets) for g, sets in self.rot_keys.items()}
         r._pow2_rots = list(self._pow2_rots)
         r._rng = copy.deepcopy(self._rng)
@@ -747,13 +756,18 @@ class CkksContext:
     def encode(self, values: np.ndarray, limbs: int, scale: float) -> Plaintext:
         """Encode slot values into an eval-domain Montgomery plaintext at
         the given limb count and exact scale (host numpy NTT)."""
+        return Plaintext(mm.to_tensor(self.encode_host(values, limbs, scale), self.device),
+                         scale)
+
+    def encode_host(self, values: np.ndarray, limbs: int, scale: float) -> np.ndarray:
+        """``encode``'s residues on the host, uint32 [limbs, N]."""
         coeffs = encoding.encode(np.asarray(values), self.n, scale)[0]
         rows = []
         for i in range(limbs):
             q = self.all_primes[i]
             ev = host_ntt_fwd(np.mod(coeffs, q).astype(np.uint64), q, self.plan.psis_np[i])
             rows.append(mm.host_to_mont(ev.astype(np.uint32), q))
-        return Plaintext(mm.to_tensor(np.stack(rows), self.device), scale)
+        return np.stack(rows)
 
     def encode_cached(self, key, values, limbs: int, scale: float) -> Plaintext:
         ck = (key, limbs, round(math.log2(scale) * 1e6))
@@ -1233,7 +1247,8 @@ class CkksContext:
         """K7's sub-scale pass: (x - t) * cinv per limb -> t's shape
         [..., l, N], x's first l limbs read in place.  With ``add`` (see
         ``add_rotated_plain``; t then [R, 2, l, N]) the addend, gathered
-        through ``perms``, is added in the same pass."""
+        through ``perms``, is added in the same pass; a gathered addend may
+        be wider than N (a slot shard's all-gathered c0)."""
         n = self.n
         l = t.shape[-2]
         t = t.contiguous()
@@ -1245,10 +1260,11 @@ class CkksContext:
         add_k = add_r = add_c = perm_r = 0
         if add is not None:
             R = t.shape[0]
-            if add.stride(-1) != 1 or add.stride(-2) != n:
+            if add.stride(-1) != 1 or add.stride(-2) != add.shape[-1]:
                 add = add.contiguous()
             if (t.dim() != 4 or t.shape[1] != 2 or add.dim() != 4 or add.shape[0] not in (1, R)
-                    or add.shape[1] not in (1, 2) or add.shape[2] != l):
+                    or add.shape[1] not in (1, 2) or add.shape[2] != l
+                    or add.shape[3] < n or (perms is None and add.shape[3] != n)):
                 raise ValueError(f"sub_scale: addend {tuple(add.shape)} for {tuple(t.shape)}")
             kernels.check_cuda("sub_scale", add, contiguous=False)
             add_k, add_c = add.shape[1], add.stride(1)
@@ -1263,10 +1279,11 @@ class CkksContext:
             raise ValueError("sub_scale: a permutation needs an addend")
         out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
         kernels.check_aligned("sub_scale", out)
-        kernels.launch("imtpu_sub_scale", "sub_scale", out, kernels.ptr(xs),
-                       x_bstride, kernels.ptr(t), kernels.ptr(cinv), kernels.ptr(self.q32),
-                       kernels.ptr(self.qneg32), kernels.ptr(add), add_r, add_c, add_k,
-                       kernels.ptr(perms), perm_r, B, l, n)
+        add_n = n if add is None else add.shape[-1]
+        kernels.launch("imtpu_sub_scale", "sub_scale" if add_n == n else "sub_scale_wide", out,
+                       kernels.ptr(xs), x_bstride, kernels.ptr(t), kernels.ptr(cinv),
+                       kernels.ptr(self.q32), kernels.ptr(self.qneg32), kernels.ptr(add), add_r,
+                       add_c, add_n, add_k, kernels.ptr(perms), perm_r, B, l, n)
         kernels.note_shape("sub_scale", B, l, add_k, "gathered" if perms is not None else "")
         return out
 
@@ -1403,7 +1420,9 @@ class CkksContext:
 
         digs: [ndig, E, N] shared by all R, or [R, ndig, E, N];
         ksk: [dnum, 2, Ltot, N] shared, or [R, dnum, 2, Ltot, N];
-        perms: int32 [R, N] automorphisms applied to the digits, or None.
+        perms: int32 [R, N] automorphisms applied to the digits, or None;
+        with perms the digits may be wider than N (a slot shard's
+        all-gathered stack, perms holding global indices).
         Kernel K4 for CUDA tensors, ``ks_mac_plain`` for CPU tensors."""
         E = l + self.S
         if not digs.is_cuda:
@@ -1419,7 +1438,10 @@ class CkksContext:
                  if not shared}
         if perms is not None:
             sizes.add(perms.shape[0])
-        if len(sizes) > 1 or digs.shape[-2] != E or ksk.shape[-2] != self.Ltot:
+        src_n = digs.shape[-1]
+        if (len(sizes) > 1 or digs.shape[-2] != E or ksk.shape[-2] != self.Ltot
+                or ksk.shape[-1] != n or src_n < n or (perms is None and src_n != n)
+                or (perms is not None and perms.shape[-1] != n)):
             raise ValueError(f"ks_mac: inconsistent shapes {tuple(digs.shape)}, "
                              f"{tuple(ksk.shape)}")
         Rn = sizes.pop() if sizes else 1
@@ -1429,9 +1451,9 @@ class CkksContext:
         tensors = [digs, ksk, self.q32, self.qneg32] + ([perms] if perms is not None else [])
         kernels.check_cuda("ks_mac", *tensors)
         kernels.launch(
-            "imtpu_ks_mac", "ks_mac", out, kernels.ptr(digs),
-            0 if d_shared else ndig * E * n, kernels.ptr(perms), kernels.ptr(ksk),
-            0 if k_shared else ksk[0].numel(), Rn, ndig, E, l, self.Lq, self.Ltot, n,
+            "imtpu_ks_mac", "ks_mac" if src_n == n else "ks_mac_wide", out, kernels.ptr(digs),
+            0 if d_shared else ndig * E * src_n, kernels.ptr(perms), kernels.ptr(ksk),
+            0 if k_shared else ksk[0].numel(), Rn, ndig, E, l, self.Lq, self.Ltot, n, src_n,
             kernels.ptr(self.q32), kernels.ptr(self.qneg32))
         kernels.note_shape("ks_mac", Rn, E, ndig, (k_shared, d_shared, perms is not None))
         return out

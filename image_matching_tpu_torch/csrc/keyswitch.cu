@@ -19,6 +19,10 @@
 // loop of separate mont_mul/mod_add passes with one pass that reads each
 // key residue once and writes each output once; the permuted digits are
 // never materialised.
+//
+// The digits' rows may be wider than the output's (src_n >= n): a slot
+// shard (parallel/tensor.py) gathers its own n slots of a rotation from
+// the all-gathered full-width digit stack, perm_r holding global indices.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,7 +34,7 @@ __global__ void ks_mac_kernel(uint32_t *__restrict__ out,
                               const int32_t *__restrict__ perms,
                               const uint32_t *__restrict__ ksk,
                               int64_t ksk_r_stride, int ndig, int E, int l,
-                              int Lq, int Ltot, int n,
+                              int Lq, int Ltot, int n, int src_n,
                               const uint32_t *__restrict__ qs,
                               const uint32_t *__restrict__ qneg) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -40,9 +44,9 @@ __global__ void ks_mac_kernel(uint32_t *__restrict__ out,
   const int limb = i < l ? i : Lq + (i - l);
   const uint32_t q = qs[limb], qn = qneg[limb];
   const int src = perms ? perms[r * n + x] : x;
-  const uint32_t *d = digs + r * digs_r_stride + (size_t)i * n + src;
+  const uint32_t *d = digs + r * digs_r_stride + (size_t)i * src_n + src;
   const uint32_t *k = ksk + r * ksk_r_stride + (size_t)limb * n + x;
-  const size_t dstride = (size_t)E * n;        // digit stride in digs
+  const size_t dstride = (size_t)E * src_n;    // digit stride in digs
   const size_t kstride = (size_t)Ltot * n;     // component stride in ksk
   uint32_t acc0 = 0, acc1 = 0;
   for (int j = 0; j < ndig; ++j) {
@@ -55,24 +59,26 @@ __global__ void ks_mac_kernel(uint32_t *__restrict__ out,
   o[(size_t)E * n] = acc1;
 }
 
-// digs: [R or 1, ndig, E, n] with r-stride digs_r_stride (0 = shared);
-// perms: [R, n] int32 or NULL; ksk: [R or 1, dnum, 2, Ltot, n] with
+// digs: [R or 1, ndig, E, src_n] with r-stride digs_r_stride (0 =
+// shared), src_n = n without perms; perms: [R, n] int32 or NULL, entries
+// < src_n; ksk: [R or 1, dnum, 2, Ltot, n] with
 // r-stride ksk_r_stride (0 = shared); out: [R, 2, E, n], E = l + S.
 // qs/qneg indexed by absolute limb 0..Ltot-1.
 extern "C" int imtpu_ks_mac(void *out, const void *digs, int64_t digs_r_stride,
                             const void *perms, const void *ksk,
                             int64_t ksk_r_stride, int64_t R, int64_t ndig,
                             int64_t E, int64_t l, int64_t Lq, int64_t Ltot,
-                            int64_t n, const void *qs, const void *qneg,
-                            void *stream) {
+                            int64_t n, int64_t src_n, const void *qs,
+                            const void *qneg, void *stream) {
   if (R == 0) return 0;
+  if (src_n < n || (perms == nullptr && src_n != n)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)E,
             (unsigned)R);
   ks_mac_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (uint32_t *)out, (const uint32_t *)digs, digs_r_stride,
       (const int32_t *)perms, (const uint32_t *)ksk, ksk_r_stride, (int)ndig,
-      (int)E, (int)l, (int)Lq, (int)Ltot, (int)n, (const uint32_t *)qs,
+      (int)E, (int)l, (int)Lq, (int)Ltot, (int)n, (int)src_n, (const uint32_t *)qs,
       (const uint32_t *)qneg);
   return (int)cudaGetLastError();
 }

@@ -52,6 +52,19 @@
 // an optional permutation perm[x] of the input: the Galois automorphism
 // gather of image_matching_tpu/ckks/context.py _permute (:976) fused into
 // the inverse NTT that starts a rotation's key switch.
+//
+// A slot shard (parallel/tensor.py: shard s of D holds positions
+// [s N/D, (s+1) N/D) of every row) runs the two passes alone through
+// imtpu_ntt_pass, with an all-to-all between them:
+//   - the column pass over a column subset: shard s's [2^a, 256/D] block
+//     (columns s 256/D ... and all 2^a elements of each), rows 2^logw =
+//     N/D wide, column stride 2^(logw - a); its twiddles depend only on
+//     the element index i, so they need no offset;
+//   - the row pass over the shard's own 2^(logw - 8) sub-blocks, whose
+//     twiddles take the global sub-block index (local + blk_off);
+//   - a source limb stride apart from the row width, so the inverse's row
+//     pass gathers a rotation from the all-gathered full-width source
+//     (perm rows of the shard's own slots, holding global indices).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,10 +162,11 @@ __device__ __forceinline__ void relayout(uint32_t (&x)[8], uint32_t *s, int l) {
 template <bool INV>
 __global__ void __launch_bounds__(128)
     ntt_rows_kernel(uint32_t *__restrict__ out, const uint32_t *__restrict__ in,
-                    int64_t in_bstride, const int32_t *__restrict__ perm,
-                    int64_t perm_bstride, int first, int last,
-                    const int32_t *__restrict__ limb_idx, int L, int logn,
-                    int lsb, const uint32_t *__restrict__ tw,
+                    int64_t in_bstride, int64_t in_lstride,
+                    const int32_t *__restrict__ perm, int64_t perm_bstride,
+                    int first, int last, const int32_t *__restrict__ limb_idx,
+                    int L, int logn, int logw, int blk_off, int lsb,
+                    const uint32_t *__restrict__ tw,
                     const uint32_t *__restrict__ tw_sh,
                     const uint32_t *__restrict__ qs,
                     const uint32_t *__restrict__ ninv,
@@ -160,19 +174,21 @@ __global__ void __launch_bounds__(128)
   constexpr int B = kMaxRowBits, KS = 5, NT = 1 << (B - 1);
   // staged twiddles of blocks v < KS (31 << lsb), psis[0..NT), then data
   extern __shared__ uint2 stw[];
-  const int n = 1 << logn, a = logn - B;
+  // n: the transform (twiddle rows); w: the rows of in and out; sub-block
+  // blk0 + warp of the row is sub-block gblk0 + warp of the transform
+  const int n = 1 << logn, w = 1 << logw, a = logn - B;
   const size_t row = blockIdx.x;
   const int li = (int)(row % L), limb = limb_idx[li];
   const size_t bi = row / L;
   const uint32_t q = qs[limb];
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int blk0 = blockIdx.y << lsb;
+  const int blk0 = blockIdx.y << lsb, gblk0 = blk0 + blk_off;
   const int base = (blk0 + warp) << B;
   const uint2 *tt = stw + (((1 << KS) - 1) << lsb);
   uint32_t *s = reinterpret_cast<uint32_t *>(stw + (((1 << KS) - 1) << lsb) + NT) + (warp << B);
   uint32_t x[8];
   if (first) {
-    const uint32_t *src = in + bi * in_bstride + (size_t)li * n;
+    const uint32_t *src = in + bi * in_bstride + (size_t)li * in_lstride;
     if (perm) {
       const int32_t *pr = perm + bi * perm_bstride;
 #pragma unroll
@@ -182,18 +198,18 @@ __global__ void __launch_bounds__(128)
       for (int r = 0; r < 8; ++r) x[r] = src[base + lay<LAY_A>(r, l)];
     }
   } else {
-    const uint32_t *src = out + row * n;
+    const uint32_t *src = out + row * w;
 #pragma unroll
     for (int r = 0; r < 8; ++r) x[r] = src[base + lay<LAY_A>(r, l)];
   }
   const uint32_t *wl = tw + (size_t)limb * n, *wshl = tw_sh + (size_t)limb * n;
-  stage_twiddles(stw, wl, wshl, a, KS, lsb, blk0);
+  stage_twiddles(stw, wl, wshl, a, KS, lsb, gblk0);
   for (int g = threadIdx.x; g < NT; g += blockDim.x)
     stw[(((1 << KS) - 1) << lsb) + g] = make_uint2(__ldg(wl + g), __ldg(wshl + g));
   uint2 c[B - KS];  // c[v - KS], v = 5..7
 #pragma unroll
   for (int v = KS; v < B; ++v) {
-    const int e = (1 << (a + v)) + ((blk0 + warp) << v);
+    const int e = (1 << (a + v)) + ((gblk0 + warp) << v);
     c[v - KS] = make_uint2(__ldg(wl + e), __ldg(wshl + e));
   }
   __syncthreads();
@@ -271,12 +287,13 @@ __global__ void __launch_bounds__(128)
     }
   }
 #undef TWB
-  uint32_t *dst = out + row * n;
+  uint32_t *dst = out + row * w;
 #pragma unroll
   for (int r = 0; r < 8; ++r) dst[base + lay<LAY_A>(r, l)] = x[r];
 }
 
-// Column pass over the 2^A elements j + i * 2^b of 32 columns j per block:
+// Column pass over the 2^A elements j + i * 2^b of 32 columns j per block,
+// b = logw - A (8 for a whole row; fewer for a shard's column subset):
 // the first A stages of the forward transform (reading `in`, the first
 // pass) or the last A of the inverse (reading `out`, scaling by 1/N).
 // Thread (c, tc), tc < 2^R2, holds 2^R1 elements, R1 + R2 = A, R1 - R2 in
@@ -286,11 +303,12 @@ __global__ void __launch_bounds__(128)
 template <bool INV, int R1, int R2>
 __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
                                 const uint32_t *__restrict__ in,
-                                int64_t in_bstride,
+                                int64_t in_bstride, int64_t in_lstride,
                                 const int32_t *__restrict__ perm,
                                 int64_t perm_bstride,
                                 const int32_t *__restrict__ limb_idx, int L,
-                                int logn, const uint32_t *__restrict__ tw,
+                                int logn, int logw,
+                                const uint32_t *__restrict__ tw,
                                 const uint32_t *__restrict__ tw_sh,
                                 const uint32_t *__restrict__ qs,
                                 const uint32_t *__restrict__ ninv,
@@ -298,7 +316,7 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
   constexpr int A = R1 + R2, E = 1 << R1, K2 = 1 << R2, G = 1 << (R1 - R2);
   extern __shared__ uint2 stw[];  // 2^A - 1 twiddles, then [2^A][32] data
   uint32_t *sdat = reinterpret_cast<uint32_t *>(stw + ((1 << A) - 1));
-  const int n = 1 << logn, b = logn - A;
+  const int n = 1 << logn, b = logw - A;
   const size_t row = blockIdx.x;
   const int li = (int)(row % L), limb = limb_idx[li];
   const size_t bi = row / L;
@@ -307,9 +325,9 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
   const int j = (blockIdx.y << 5) + c;
   uint32_t x[E];
   stage_twiddles(stw, tw + (size_t)limb * n, tw_sh + (size_t)limb * n, 0, A, 0, 0);
-  uint32_t *dst = out + row * n;
+  uint32_t *dst = out + row * ((size_t)1 << logw);
   if (!INV) {
-    const uint32_t *src = in + bi * in_bstride + (size_t)li * n;
+    const uint32_t *src = in + bi * in_bstride + (size_t)li * in_lstride;
     const int32_t *pr = perm ? perm + bi * perm_bstride : nullptr;
 #pragma unroll
     for (int k = 0; k < E; ++k) {
@@ -409,12 +427,12 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
 struct Args {
   uint32_t *out;
   const uint32_t *in;
-  int64_t in_bstride;
+  int64_t in_bstride, in_lstride;
   const int32_t *perm;
   int64_t perm_bstride;
   const int32_t *limb_idx;
   unsigned rows;
-  int L, logn;
+  int L, logn, logw, blk_off;
   const uint32_t *tw, *tw_sh, *qs, *ninv, *ninv_sh;
   cudaStream_t st;
 };
@@ -422,23 +440,26 @@ struct Args {
 template <bool INV>
 void rows_pass(const Args &g, int first, int last) {
   constexpr int B = kMaxRowBits, KS = 5, NT = 1 << (B - 1);
-  const int a = g.logn - B, lsb = a < 2 ? a : 2;
-  const dim3 grid(g.rows, 1u << (a - lsb));
+  // sub: log2 of the row's sub-blocks; 2^lsb of them a block, at most 4
+  const int sub = g.logw - B;
+  const int lsb = sub < 2 ? sub : 2;
+  const dim3 grid(g.rows, 1u << (sub - lsb));
   const size_t smem = ((size_t)(((1 << KS) - 1) << lsb) + NT) * sizeof(uint2) +
                       ((size_t)1 << (B + lsb)) * sizeof(uint32_t);
   ntt_rows_kernel<INV><<<grid, 32 << lsb, smem, g.st>>>(
-      g.out, g.in, g.in_bstride, g.perm, g.perm_bstride, first, last, g.limb_idx,
-      g.L, g.logn, lsb, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+      g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, first, last,
+      g.limb_idx, g.L, g.logn, g.logw, g.blk_off, lsb, g.tw, g.tw_sh, g.qs, g.ninv,
+      g.ninv_sh);
 }
 
 template <bool INV, int R1, int R2>
 void cols_pass(const Args &g) {
   constexpr int A = R1 + R2;
-  const dim3 grid(g.rows, 1u << (g.logn - A - 5));
+  const dim3 grid(g.rows, 1u << (g.logw - A - 5));
   const size_t smem = ((1 << A) - 1) * sizeof(uint2) + (size_t)(32 << A) * sizeof(uint32_t);
   ntt_cols_kernel<INV, R1, R2><<<grid, 32 << R2, smem, g.st>>>(
-      g.out, g.in, g.in_bstride, g.perm, g.perm_bstride, g.limb_idx, g.L, g.logn,
-      g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+      g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, g.limb_idx, g.L,
+      g.logn, g.logw, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
 }
 
 template <bool INV>
@@ -474,9 +495,9 @@ extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
   if (rows == 0) return 0;
   if (logn < kMaxRowBits || logn > 2 * kMaxRowBits || rows > 0x7fffffff || L < 1)
     return (int)cudaErrorInvalidValue;
-  const Args g{(uint32_t *)out, (const uint32_t *)in, in_bstride,
+  const Args g{(uint32_t *)out, (const uint32_t *)in, in_bstride, (int64_t)1 << logn,
                (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
-               (unsigned)rows, (int)L, (int)logn, (const uint32_t *)tw,
+               (unsigned)rows, (int)L, (int)logn, (int)logn, 0, (const uint32_t *)tw,
                (const uint32_t *)tw_sh, (const uint32_t *)qs,
                (const uint32_t *)ninv, (const uint32_t *)ninv_sh,
                (cudaStream_t)stream};
@@ -495,6 +516,47 @@ extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
       if (e != cudaSuccess) return (int)e;
       cols_dispatch<true>(g, a);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// One pass of a slot shard's transform (see the top of this file): the
+// column pass (cols != 0) over rows of 2^logw residues holding the
+// shard's [2^a, 2^(logw - a)] column block (forward: reads in, which out
+// may alias; inverse: in place in out, with 1/N), or the row pass over
+// the rows' 2^(logw - 8) sub-blocks, global sub-block index = local +
+// blk_off (reads in, through perm when not NULL: row r = (b, i) at in +
+// b * in_bstride + i * in_lstride; the inverse's row pass is its first).
+// 8 < logn <= 16; the column pass needs 2^(logw - a) >= 32 columns.
+extern "C" int imtpu_ntt_pass(void *out, const void *in, int64_t in_bstride,
+                              int64_t in_lstride, const void *perm,
+                              int64_t perm_bstride, const void *limb_idx,
+                              int64_t rows, int64_t L, int64_t logn,
+                              int64_t logw, int64_t cols, int64_t blk_off,
+                              const void *tw, const void *tw_sh, const void *qs,
+                              const void *ninv, const void *ninv_sh,
+                              int64_t inverse, void *stream) {
+  if (rows == 0) return 0;
+  const int64_t a = logn - kMaxRowBits;
+  if (a < 1 || logn > 2 * kMaxRowBits || logw > logn || logw < kMaxRowBits ||
+      rows > 0x7fffffff || L < 1 || blk_off < 0 ||
+      blk_off + ((int64_t)1 << (logw - kMaxRowBits)) > ((int64_t)1 << a) ||
+      (cols && (logw - a < 5 || perm != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Args g{(uint32_t *)out, (const uint32_t *)in, in_bstride, in_lstride,
+               (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
+               (unsigned)rows, (int)L, (int)logn, (int)logw, (int)blk_off,
+               (const uint32_t *)tw, (const uint32_t *)tw_sh, (const uint32_t *)qs,
+               (const uint32_t *)ninv, (const uint32_t *)ninv_sh, (cudaStream_t)stream};
+  if (cols) {
+    if (inverse)
+      cols_dispatch<true>(g, (int)a);
+    else
+      cols_dispatch<false>(g, (int)a);
+  } else if (inverse) {
+    rows_pass<true>(g, 1, 0);
+  } else {
+    rows_pass<false>(g, 1, 1);
   }
   return (int)cudaGetLastError();
 }

@@ -90,7 +90,7 @@ struct SubArgs {
   uint32_t *out;
   const uint32_t *x, *t, *cinv, *qs, *qneg, *add;
   const int32_t *perms;
-  int64_t x_bstride, add_rstride, add_cstride, perm_rstride;
+  int64_t x_bstride, add_rstride, add_cstride, add_lstride, perm_rstride;
   int add_k, B, l, n, per;
 };
 
@@ -110,11 +110,12 @@ __device__ __forceinline__ void sub_limbs(const SubArgs &p,
     ld_v<V>(xb + off, xv[j]);
     ld_v<V>(tb + off, tv[j]);
     if (ab != nullptr) {
+      const size_t aoff = (size_t)(i + j) * p.add_lstride;
       if (GATHER) {
 #pragma unroll
-        for (int v = 0; v < V; ++v) av[j][v] = __ldg(ab + off + pk[v]);
+        for (int v = 0; v < V; ++v) av[j][v] = __ldg(ab + aoff + pk[v]);
       } else {
-        ld_v<V>(ab + off, av[j]);
+        ld_v<V>(ab + aoff, av[j]);
       }
     }
   }
@@ -205,24 +206,28 @@ static void launch_sub_scale(const SubArgs &p, dim3 grid, cudaStream_t s) {
 // cinv [l]: the divisor's inverse in Montgomery form per limb.  With
 // add_k > 0 the rows are (r, comp) = (b / 2, b % 2) of a [R, 2, l, n]
 // key-switch output, and component comp < add_k gets add[r * add_rstride
-// + comp * add_cstride + i * n + perm_r[k]] (perm NULL: k), perm_r at
-// perms + r * perm_rstride.
+// + comp * add_cstride + i * add_lstride + perm_r[k]] (perm NULL: k, and
+// add_lstride = n), perm_r at perms + r * perm_rstride.  A gathered
+// addend's rows may be wider than the output's (add_lstride > n): a slot
+// shard (parallel/tensor.py) gathers its own n slots of a rotation from
+// the all-gathered full-width c0, perm_r holding global indices.
 extern "C" int imtpu_sub_scale(void *out, const void *x, int64_t x_bstride,
                                const void *t, const void *cinv,
                                const void *qs, const void *qneg,
                                const void *add, int64_t add_rstride,
-                               int64_t add_cstride, int64_t add_k,
+                               int64_t add_cstride, int64_t add_lstride, int64_t add_k,
                                const void *perms, int64_t perm_rstride,
                                int64_t B, int64_t l, int64_t n, void *stream) {
   if (B == 0 || l == 0) return 0;
   if (add_k < 0 || add_k > 2 || (add_k > 0 && (add == nullptr || B % 2 != 0)) ||
-      (perms != nullptr && add_k == 0) || l * n >= (int64_t)1 << 31)
+      (perms != nullptr && add_k == 0) || l * n >= (int64_t)1 << 31 ||
+      (add_k > 0 && (add_lstride < n || (perms == nullptr && add_lstride != n))))
     return (int)cudaErrorInvalidValue;
   const SubArgs p{(uint32_t *)out, (const uint32_t *)x, (const uint32_t *)t,
                   (const uint32_t *)cinv, (const uint32_t *)qs,
                   (const uint32_t *)qneg, (const uint32_t *)add,
                   (const int32_t *)perms, x_bstride, add_rstride, add_cstride,
-                  perm_rstride, (int)add_k, (int)B, (int)l, (int)n, 0};
+                  add_lstride, perm_rstride, (int)add_k, (int)B, (int)l, (int)n, 0};
   // V = 4 needs every row of every operand on a 16-byte boundary; the
   // gathered addend is read one residue at a time either way
   const bool vec =

@@ -40,15 +40,16 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # pointer (c_void_p), "i" an int64_t.
 _ENTRIES = {
     "imtpu_ntt": "ppipipiiipppppi",
+    "imtpu_ntt_pass": "ppiipipiiiiiipppppi",
     "imtpu_ct_dot": "pppiiiiiipppp",
     "imtpu_ct_dot_seeded": "pppiiiiiippppii",
     "imtpu_fbc": "pppppiiii",
-    "imtpu_ks_mac": "ppippiiiiiiiipp",
+    "imtpu_ks_mac": "ppippiiiiiiiiipp",
     "imtpu_expand_c1": "pppppiiiiii",
     "imtpu_seeded_pre": "ppppppppiii",
     "imtpu_seeded_c0": "pppppppiiiii",
     "imtpu_rescale_lift": "ppiipppiii",
-    "imtpu_sub_scale": "ppipppppiiipiiii",
+    "imtpu_sub_scale": "ppipppppiiiipiiii",
     "imtpu_decompose": "ppippiiii",
     "imtpu_tensor": "ppiipiiippiii",
     "imtpu_decrypt_mac": "ppiiipppii",
@@ -65,11 +66,17 @@ _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
 # registers) apart from K2, and the two-pass kernels (K6 seeded
 # encryption, K7 division by a modulus, K9 tensor product / decrypt MAC,
 # K10 public-key encryption, K11 standalone residue arithmetic:
-# elementwise / row sum) per pass; K12 the modular sum of shard partials
+# elementwise / row sum) per pass; K12 the modular sum of shard partials.
+# A slot shard's variants (parallel/tensor.py) count apart: K1's passes
+# alone (the column pass over a column subset, the row pass at a
+# sub-block offset, per direction), and K4 and K7 reading a full-width
+# source through a rotation's global indices
+TP_KERNELS = ("ntt_fwd_cols", "ntt_fwd_rows", "ntt_inv_rows", "ntt_inv_cols",
+              "ks_mac_wide", "sub_scale_wide")
 KERNELS = ("ntt_fwd", "ntt_inv", "ct_dot", "ct_dot_seeded", "fbc", "ks_mac",
            "expand_c1", "seeded_pre", "seeded_c0", "rescale_lift", "sub_scale",
            "decompose", "tensor", "decrypt_mac", "pk_pre", "pk_mac", "modarith",
-           "mod_sum", "psum_mod")
+           "mod_sum", "psum_mod") + TP_KERNELS
 _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost

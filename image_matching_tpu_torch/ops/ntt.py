@@ -68,20 +68,26 @@ def _psi_tables(n: int, q: int, psi: int):
     return psis, ipsis, pow(n, -1, q)
 
 
-def ntt_fwd_plain(a: torch.Tensor, psis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Plain forward NTT.  a: int [..., L, N]; psis: [L, N] twiddle rows of
-    those limbs; q: int64 [L].  Cooley-Tukey stages, as host_ntt_fwd."""
-    n = a.shape[-1]
-    lead = a.shape[:-1]
-    L = a.shape[-2]
+def ntt_fwd_stages(x: torch.Tensor, psis: torch.Tensor, q: torch.Tensor, lo: int, hi: int,
+                   nblk: int = 1, blk: int = 0, inner: int = 1) -> torch.Tensor:
+    """Forward (Cooley-Tukey) stages with group counts m = lo, 2 lo, ..., <
+    hi of a virtual row of V elements, on int64 x [..., L, n].  x's last
+    axis holds block ``blk`` of ``nblk`` equal contiguous blocks of that
+    row, each element ``inner`` residues wide (a column of ``inner``
+    transforms side by side), so V = nblk * n / inner; stage m pairs
+    elements V / (2m) apart and needs m >= nblk (no pair crosses a block).
+    Its twiddles are rows psis[m + g] of the whole transform's table, g the
+    global group.  The whole transform is lo = 1, hi = n; a slot shard's
+    transform splits it (parallel/tensor.py)."""
+    lead = x.shape[:-1]
+    L, n = x.shape[-2], x.shape[-1]
+    V = nblk * (n // inner)
     qv = q.long().view(L, 1, 1)
-    w_all = psis.long()
-    x = a.long()
-    m = 1
-    while m < n:
-        t = n // (2 * m)
-        x = x.reshape(*lead, m, 2, t)
-        w = w_all[:, m:2 * m].reshape(L, m, 1)
+    m = lo
+    while m < hi:
+        ml = m // nblk
+        x = x.reshape(*lead, ml, 2, V // (2 * m) * inner)
+        w = psis[:, m + blk * ml:m + (blk + 1) * ml].long().reshape(L, ml, 1)
         u = x[..., 0, :]
         v = x[..., 1, :] * w % qv
         s = u + v
@@ -89,33 +95,45 @@ def ntt_fwd_plain(a: torch.Tensor, psis: torch.Tensor, q: torch.Tensor) -> torch
         x = torch.stack([torch.where(s >= qv, s - qv, s),
                          torch.where(d < 0, d + qv, d)], dim=-2)
         m *= 2
-    return x.reshape(*lead, n).int()
+    return x.reshape(*lead, n)
 
 
-def ntt_inv_plain(a: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor,
-                  ninv: torch.Tensor) -> torch.Tensor:
-    """Plain inverse NTT (Gentleman-Sande, then 1/N), as host_ntt_inv.
-    ninv: int64 [L]."""
-    n = a.shape[-1]
-    lead = a.shape[:-1]
-    L = a.shape[-2]
+def ntt_inv_stages(x: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor, lo: int, hi: int,
+                   nblk: int = 1, blk: int = 0, inner: int = 1) -> torch.Tensor:
+    """Inverse (Gentleman-Sande) stages with group counts h = hi / 2, ...,
+    lo (descending) of a virtual row, on int64 x [..., L, n], laid out as
+    in ``ntt_fwd_stages``; twiddles ipsis[h + g].  No 1/N factor."""
+    lead = x.shape[:-1]
+    L, n = x.shape[-2], x.shape[-1]
+    V = nblk * (n // inner)
     qv = q.long().view(L, 1, 1)
-    w_all = ipsis.long()
-    x = a.long()
-    m = n
-    while m > 1:
-        h = m // 2
-        t = n // m
-        x = x.reshape(*lead, h, 2, t)
-        w = w_all[:, h:2 * h].reshape(L, h, 1)
+    h = hi // 2
+    while h >= lo:
+        hl = h // nblk
+        x = x.reshape(*lead, hl, 2, V // (2 * h) * inner)
+        w = ipsis[:, h + blk * hl:h + (blk + 1) * hl].long().reshape(L, hl, 1)
         u = x[..., 0, :]
         v = x[..., 1, :]
         s = u + v
         d = u - v
         x = torch.stack([torch.where(s >= qv, s - qv, s),
                          torch.where(d < 0, d + qv, d) * w % qv], dim=-2)
-        m //= 2
-    x = x.reshape(*lead, n)
+        h //= 2
+    return x.reshape(*lead, n)
+
+
+def ntt_fwd_plain(a: torch.Tensor, psis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain forward NTT.  a: int [..., L, N]; psis: [L, N] twiddle rows of
+    those limbs; q: int64 [L].  Cooley-Tukey stages, as host_ntt_fwd."""
+    return ntt_fwd_stages(a.long(), psis, q, 1, a.shape[-1]).int()
+
+
+def ntt_inv_plain(a: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor,
+                  ninv: torch.Tensor) -> torch.Tensor:
+    """Plain inverse NTT (Gentleman-Sande, then 1/N), as host_ntt_inv.
+    ninv: int64 [L]."""
+    L = a.shape[-2]
+    x = ntt_inv_stages(a.long(), ipsis, q, 1, a.shape[-1])
     return (x * ninv.long().view(L, 1) % q.long().view(L, 1)).int()
 
 
@@ -273,16 +291,59 @@ class NttPlan:
         self.rows_hist[rows] = self.rows_hist.get(rows, 0) + 1
         return out
 
+    def launch_pass(self, out: torch.Tensor, a: torch.Tensor, limbs: Tuple[int, ...],
+                    inverse: bool, cols: bool, blk_off: int = 0,
+                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One pass of K1 alone (``imtpu_ntt_pass``) for a slot shard
+        (parallel/tensor.py), into ``out`` [..., L, w], w = N / D, which it
+        returns.  ``cols``: the column pass over the shard's [2^a, w / 2^a]
+        column block of each row (forward: reads ``a``, which may be
+        ``out``; inverse: in place in ``out``, with 1/N); else the row pass
+        over the row's w / 256 sub-blocks, the first at global sub-block
+        ``blk_off``, reading ``a`` [..., L, w] or, gathered through ``perm``
+        ([w] or [B, w] of global indices), a full-width source [..., L, N].
+        CUDA only: the plain versions are ``ntt_fwd_stages`` /
+        ``ntt_inv_stages``."""
+        L, w = out.shape[-2], out.shape[-1]
+        logw = w.bit_length() - 1
+        src, batch, bstride = kernels.row_blocks(a)
+        if (L != len(limbs) or a.shape[-2] != L or w != 1 << logw or not out.is_contiguous()
+                or src.numel() // (L * src.shape[-1]) != out.numel() // (L * w)
+                or src.shape[-1] != (self.n if perm is not None else w)):
+            raise ValueError(f"ntt pass: data {tuple(a.shape)} into {tuple(out.shape)} for "
+                             f"{len(limbs)} limbs of N={self.n}")
+        perm_bstride = 0
+        if perm is not None:
+            perm = perm.contiguous()
+            if perm.shape[-1] != w or perm.dim() > 2 or (
+                    perm.dim() == 2 and perm.shape[0] not in (1, batch)):
+                raise ValueError(f"ntt pass: permutation {tuple(perm.shape)} for {batch} rows")
+            perm_bstride = w if perm.dim() == 2 and perm.shape[0] > 1 else 0
+            kernels.check_cuda("ntt", perm)
+        idx = self.limb_index(limbs)
+        tw, tw_sh = (self.ipsis, self.ipsis_sh) if inverse else (self.psis, self.psis_sh)
+        kernels.check_cuda("ntt", out, idx, tw, tw_sh, self.q, self.ninv, self.ninv_sh)
+        kernels.check_cuda("ntt", src, contiguous=False)
+        name = ("ntt_inv" if inverse else "ntt_fwd") + ("_cols" if cols else "_rows")
+        kernels.launch(
+            "imtpu_ntt_pass", name, out, kernels.ptr(src), bstride, src.shape[-1],
+            kernels.ptr(perm), perm_bstride, kernels.ptr(idx), batch * L, L, self.logn, logw,
+            int(cols), blk_off, kernels.ptr(tw), kernels.ptr(tw_sh), kernels.ptr(self.q),
+            kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh), int(inverse))
+        return out
+
 
 def permute_rows(a: torch.Tensor, perm: Optional[torch.Tensor]) -> torch.Tensor:
     """a [..., L, N] with its last axis gathered through perm: int [N]
     (every row), or [B, N] with one permutation per [L, N] block of a
-    [B, L, N] (plain torch; the kernels gather inside their loads)."""
+    [B, L, N] (plain torch; the kernels gather inside their loads).  perm
+    may be narrower than a's rows (a slot shard's own slots of a full-width
+    source)."""
     if perm is None:
         return a
     if perm.dim() == 1 or perm.shape[0] == 1:
         return a.index_select(-1, perm.reshape(-1).long())
-    idx = perm.long()[:, None, :].expand(a.shape[0], a.shape[-2], a.shape[-1])
+    idx = perm.long()[:, None, :].expand(a.shape[0], a.shape[-2], perm.shape[-1])
     return torch.gather(a, -1, idx)
 
 

@@ -6,6 +6,10 @@ one-card mesh bit-equal to one device, and, where the machine has two or
 more cards, a context on another card than the current one, the sharded
 scenarios over real cards and psum_mod across two processes over NCCL.
 
+Slot-sharded tensor parallelism (parallel/tensor.py) over one-card meshes
+bit-equal to one device (its ops at ring 8192, HyDia's membership and
+index at ring 2048), and over real cards where there are two or more.
+
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  This
 file imports only the port: neither jax, nor the JAX package, nor
 tests/conftest.py's jax setup, so on the machine with the card (which has
@@ -30,15 +34,17 @@ from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops import kernels
 from image_matching_tpu_torch.ops import modmath as mm
 from image_matching_tpu_torch.ops import ntt, prng
-from image_matching_tpu_torch.parallel import sharded
+from image_matching_tpu_torch.parallel import sharded, tensor
 from image_matching_tpu_torch.utils import io as dio
 
 pytestmark = pytest.mark.cuda
 
 PARAMS = SchemeParams.create(ring_dim=512, mult_depth=11, security="none")
-# every kernel but K12, which only a sharded membership launches, and K5,
-# whose c1 the streamed senders draw inside the seeded contraction
-UNSHARDED = tuple(k for k in kernels.KERNELS if k not in ("psum_mod", "expand_c1"))
+# every kernel but K12, which only a sharded membership launches, K5,
+# whose c1 the streamed senders draw inside the seeded contraction, and the
+# slot shards' variants, which only tensor parallelism launches
+UNSHARDED = tuple(k for k in kernels.KERNELS
+                  if k not in ("psum_mod", "expand_c1") + kernels.TP_KERNELS)
 # the streamed store's path: the seeded contraction in place of K2
 STREAMED = tuple(k for k in UNSHARDED if k != "ct_dot")
 # the in-memory paths: neither the seeded contraction nor seeded encryption
@@ -1108,3 +1114,79 @@ def test_two_process_psum_mod_over_nccl():
     from test_torch_multihost import run_pair
 
     run_pair("cuda")
+
+
+def _tp_ops_vs_single(devices, n=8192):
+    """TensorParallel's ops over ``devices`` equal one device's, bit for
+    bit: the NTT both ways, ct x ct with relinearization and rescale, a
+    rotation by 3 through the power-of-two keys and EvalSum over 8; only
+    K1's passes alone launch, never the whole transform.  K4 reads a
+    full-width source only in hoisted rotations (the scenario's baby
+    steps): a rotation here gathers in K1's inverse row pass."""
+    dev = _device()
+    params = SchemeParams.create(ring_dim=n, mult_depth=5, security="none")
+    ctx = CkksContext(params, seed=12, device=dev, **_numpy_noise(params))
+    ctx.gen_power_of_two_rotation_keys()
+    rng = np.random.default_rng(1)
+    a, b = ctx.encrypt(rng.uniform(-1, 1, ctx.slots)), ctx.encrypt(rng.uniform(-1, 1, ctx.slots))
+    single = ctx.rescale_score(ctx.relinearize(ctx.mul(a, b)))
+    rot, esum = ctx.binary_rotate(single, 3), ctx.eval_sum(single, 8)
+    lim = ctx.q_limbs(4)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _rows(ctx, gen, (2,), lim)
+    tp = tensor.TensorParallel(ctx, sharded.make_mesh(devices=devices))
+    kernels.reset_counts()
+    fwd, inv = tp.ntt_fwd(x, lim), tp.ntt_inv(x, lim)
+    prod = tp.mul_relin_rescale(tp.shard_ct(a), tp.shard_ct(b))
+    trot, tsum = tp.rotate(prod, 3), tp.eval_sum(prod, 8)
+    c = kernels.counts()
+    root = tp.mesh.root
+    assert torch.equal(fwd, ctx.plan.fwd_plain(x, lim).to(root))
+    assert torch.equal(inv, ctx.plan.inv_plain(x, lim).to(root))
+    assert prod.scale == single.scale and torch.equal(prod.data, single.data.to(root))
+    assert prod.data.device == root
+    assert torch.equal(trot.data, rot.data.to(root))
+    assert torch.equal(tsum.data, esum.data.to(root))
+    assert all(c[k] > 0 for k in kernels.TP_KERNELS if k != "ks_mac_wide"), c
+    assert c["ntt_fwd"] == c["ntt_inv"] == 0, c
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_tensor_parallel_on_one_card_matches_single(shards):
+    _tp_ops_vs_single([_device()] * shards)
+
+
+def _tp_scenario_vs_single(devices):
+    """HyDia's in-memory membership and index over slot shards equal one
+    device's bit for bit (ring 2048, 2 groups), with the decisions right."""
+    dev = _device()
+    cfg = MatchConfig(vector_dim=64, chunk_len=16, comp_depth=8)
+    params = SchemeParams.create(ring_dim=2048, mult_depth=compute_required_depth(5, 8),
+                                 security="none")
+    query, db = dio.gen_dataset(params.slots * 2, 64, seed=3)
+    proto = MatchingProtocol.setup(5, db, cfg, ctx=CkksContext(params, seed=7, device=dev,
+                                                               **_numpy_noise(params)))
+    qcts = proto.encrypt_query(query)
+    mem, idx = proto.membership(qcts), proto.index(qcts)
+    scen = tensor.TPScenario(proto.sender, sharded.make_mesh(devices=devices))
+    kernels.reset_counts()
+    tmem, tidx = scen.membership(qcts), scen.index(qcts)
+    c = kernels.counts()
+    assert tmem.scale == mem.scale and torch.equal(tmem.data, mem.data)
+    assert len(tidx) == len(idx) and all(torch.equal(a.data, b.data) for a, b in zip(idx, tidx))
+    assert proto.decrypt_membership(tmem) is True and 0 in proto.decrypt_index(tidx)
+    assert all(c[k] > 0 for k in kernels.TP_KERNELS), c
+    assert c["ntt_fwd"] == c["ntt_inv"] == 0, c
+
+
+def test_tp_scenario_on_one_card_matches_single():
+    _tp_scenario_vs_single([_device()] * 4)
+
+
+def test_tensor_parallel_over_cards_matches_one_card():
+    """The same over real cards (2 or 4)."""
+    cards = _needs_cards()
+    cards = cards[:4 if len(cards) >= 4 else 2]
+    _tp_ops_vs_single(cards)
+    _tp_scenario_vs_single(cards)
+

@@ -5,8 +5,9 @@ fresh interpreter whose import system refuses jax and the JAX package
 (matched on the exact top-level name: image_matching_tpu_torch is
 allowed).  CkksContext, NttPlan, MatchingProtocol.setup, the carry helpers,
 the harnesses (the enrollment CLI too), serialization's loaders and
-make_mesh take the card unless the caller asks for the CPU, and without a
-GPU the default raises instead of carrying on on the CPU."""
+make_mesh and make_tp_mesh take the card unless the caller asks for the
+CPU, and without a GPU the default raises instead of carrying on on the
+CPU."""
 
 import inspect
 import os
@@ -26,6 +27,7 @@ from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
 from image_matching_tpu_torch.ops.ntt import NttPlan
 from image_matching_tpu_torch.parallel.sharded import make_mesh
+from image_matching_tpu_torch.parallel.tensor import make_tp_mesh
 from image_matching_tpu_torch.utils import carry, serial
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -50,6 +52,7 @@ names = [m.name for m in pkgutil.walk_packages(image_matching_tpu_torch.__path__
                                                "image_matching_tpu_torch.")]
 assert {"image_matching_tpu_torch.parallel.sharded",
         "image_matching_tpu_torch.parallel.multihost",
+        "image_matching_tpu_torch.parallel.tensor",
         "image_matching_tpu_torch.harness.enroll_cache"} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -90,4 +93,6 @@ def test_default_raises_without_a_gpu():
         NttPlan(512, params.q_primes[:1], [root_of_unity(params.q_primes[0], 1024)])
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         make_mesh(devices=["cuda:0"] * 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_tp_mesh()
     assert CkksContext(params, device="cpu").device == torch.device("cpu")
