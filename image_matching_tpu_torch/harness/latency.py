@@ -9,7 +9,8 @@ Usage:  python -m image_matching_tpu_torch.harness.latency <dataset.dat> <approa
 
 Runs on the card unless ``--device cpu`` is given; without a GPU the
 default raises.  ``--profile-dir`` writes a ``torch.profiler`` Chrome trace
-(``trace.json``) of the run there.
+(``trace.json``) of the run there, shapes recorded, so that the served
+requests' ``imtpu.*`` spans carry their args (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -56,15 +57,16 @@ def scheme_params(approach: int, cfg: MatchConfig, ring_dim: int,
 
 @contextlib.contextmanager
 def _profiled(profile_dir: str, device: torch.device):
-    """A torch.profiler trace of the block, written as a Chrome trace to
-    ``profile_dir/trace.json``; nothing when ``profile_dir`` is empty."""
+    """A torch.profiler trace of the block, shapes recorded (the spans'
+    args), written as a Chrome trace to ``profile_dir/trace.json``;
+    nothing when ``profile_dir`` is empty."""
     if not profile_dir:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

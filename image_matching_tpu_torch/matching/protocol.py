@@ -12,6 +12,7 @@ import numpy as np
 
 from ..ckks.context import CkksContext, Ciphertext
 from ..ckks.params import SchemeParams, compute_required_depth
+from ..utils import spans
 from . import enrollers, receivers, senders, streaming
 from .config import MatchConfig
 
@@ -70,11 +71,19 @@ class MatchingProtocol:
     def encrypt_query(self, query: np.ndarray) -> List[Ciphertext]:
         return self.receiver.encrypt_query(query)
 
+    def _request(self, kind: str, query_cts: List[Ciphertext]):
+        """The ``imtpu.<kind>`` span of one served request, with the
+        next request id."""
+        return spans.span(kind, {"request": next(spans.REQUESTS), "approach": self.approach,
+                                 "cts": len(query_cts)})
+
     def membership(self, query_cts: List[Ciphertext]) -> Ciphertext:
-        return self.sender.run_membership(query_cts)
+        with self._request("membership", query_cts):
+            return self.sender.run_membership(query_cts)
 
     def index(self, query_cts: List[Ciphertext]) -> List[Ciphertext]:
-        return self.sender.run_index(query_cts)
+        with self._request("index", query_cts):
+            return self.sender.run_index(query_cts)
 
     def decrypt_membership(self, ct: Ciphertext) -> bool:
         return self.receiver.decrypt_membership(ct)

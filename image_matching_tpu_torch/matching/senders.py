@@ -30,6 +30,7 @@ from ..ckks.context import CkksContext, Ciphertext
 from ..ops import kernels
 from ..ops import modmath as mm
 from ..ops import prng
+from ..utils import spans
 from . import packing
 from .config import MatchConfig
 from .enrollers import BaseDB, BlindDB, DiagDB, HersDB
@@ -160,10 +161,13 @@ class Sender:
         [B, 2, l, N], up to ``compare_chunk()`` per stack, and each stack
         takes one compare circuit (the JAX package's vmap over the scores
         and its segments' chunks).  No op of the circuit reduces across the
-        stack, so each flag equals that score's own, residue for residue."""
+        stack, so each flag equals that score's own, residue for residue.
+        Each circuit runs in an ``imtpu.compare`` span."""
         scores = list(scores)
         if len(scores) == 1:
-            return [poly_eval.chebyshev_compare(self.ctx, scores[0], thr, self.cfg.comp_depth)]
+            with spans.span("compare", {"scores": 1}):
+                return [poly_eval.chebyshev_compare(self.ctx, scores[0], thr,
+                                                    self.cfg.comp_depth)]
         chunk = compare_chunk()
         out: List[Ciphertext] = []
         for i in range(0, len(scores), chunk):
@@ -180,9 +184,10 @@ class Sender:
             if s.data.shape != shape:
                 raise ValueError(f"compare: scores of shapes {tuple(shape)} and "
                                  f"{tuple(s.data.shape)} in one stack")
-        stack = Ciphertext(torch.stack([s.data for s in scores]), scale)
-        flags = poly_eval.chebyshev_compare(self.ctx, stack, thr, self.cfg.comp_depth)
-        return [Ciphertext(d, flags.scale) for d in flags.data]
+        with spans.span("compare", {"scores": len(scores)}):
+            stack = Ciphertext(torch.stack([s.data for s in scores]), scale)
+            flags = poly_eval.chebyshev_compare(self.ctx, stack, thr, self.cfg.comp_depth)
+            return [Ciphertext(d, flags.scale) for d in flags.data]
 
     def _membership_reduce(self, flags: List[Ciphertext]) -> Ciphertext:
         """EvalAddManyInPlace + EvalSum(batch): flags of one shape and
@@ -255,16 +260,17 @@ def diag_group_score(ctx: CkksContext, t3: torch.Tensor, n1: int,
     """Similarity score ciphertext of one diagonal group from its blocked
     contraction with the query stack, t3 [n2, 3, l, N] (``ct_dot`` or
     ``ct_dot_seeded`` in n2 = dim / n1 blocks): relinearize, giant
-    rotations (BSGS), rescale."""
-    n2 = t3.shape[0]
-    if n2 == 1:
-        return ctx.rescale_score(ctx.relinearize(Ciphertext(t3[0], prod_scale)))
-    inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
-    # giant rotations: one batched keyswitch over stacked rows
-    rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)], prod_scale)
-    mod = ctx._mod(inners.shape[-2])
-    summed = mm.residue_op("add", inners[0], mm.row_sum(rot, mod), mod)
-    return ctx.rescale_score(Ciphertext(summed, prod_scale))
+    rotations (BSGS), rescale, in an ``imtpu.score`` span."""
+    with spans.span("score"):
+        n2 = t3.shape[0]
+        if n2 == 1:
+            return ctx.rescale_score(ctx.relinearize(Ciphertext(t3[0], prod_scale)))
+        inners = ctx.relinearize_stack(t3)  # [n2, 2, l, N]
+        # giant rotations: one batched keyswitch over stacked rows
+        rot = ctx.rotate_stack(inners[1:], [n1 * j for j in range(1, n2)], prod_scale)
+        mod = ctx._mod(inners.shape[-2])
+        summed = mm.residue_op("add", inners[0], mm.row_sum(rot, mod), mod)
+        return ctx.rescale_score(Ciphertext(summed, prod_scale))
 
 
 class DiagonalSender(Sender):

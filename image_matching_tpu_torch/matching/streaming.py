@@ -60,6 +60,7 @@ import torch
 
 from ..ckks import poly_eval
 from ..ckks.context import CkksContext, Ciphertext
+from ..utils import spans
 from . import senders
 from .config import MatchConfig
 from .enrollers import diag_bsgs_n1, diag_group_vals, hers_group_vals
@@ -619,6 +620,18 @@ def _stream_groups(store: SeededStore, ctx: CkksContext, ids: Optional[Sequence[
             yield g, store.groups[g].to(ctx.device), True, _no_release
 
 
+def _group_tier(store: SeededStore, g: int, c0: torch.Tensor) -> str:
+    """Where the c0 that ``_stream_groups`` yielded for group id g came
+    from: a padding id ("pad"), the host tier ("host"), the store's own
+    tensor on the consumer's device ("resident") or a copy from another
+    device ("peer")."""
+    if g >= store.num_groups:
+        return "pad"
+    if not store.resident[g]:
+        return "host"
+    return "resident" if c0 is store.groups[g] else "peer"
+
+
 class _StreamedSender(senders.Sender):
     """A sender over a SeededStore: the groups streamed one at a time
     through ``_stream_groups`` (c0 where it lies or prefetched, its c1
@@ -642,18 +655,27 @@ class _StreamedSender(senders.Sender):
         queued (``_stream_groups``)."""
         raise NotImplementedError
 
-    def _similarity_stream(self, query: List[Ciphertext]) -> Iterator[Ciphertext]:
-        """Score ciphertext of each group, in order, computed as the
-        stream reaches it."""
+    def _scores(self, Q, groups: Iterable[Tuple[int, torch.Tensor, bool, Callable[[], None]]]
+                ) -> Iterator[Tuple[int, Ciphertext]]:
+        """(g, score) of each group that ``groups`` (``_stream_groups``)
+        yields, its work in an ``imtpu.group`` span that closes before the
+        score is yielded: a consumer's compare runs outside it."""
+        for g, c0, valid, release in groups:
+            with spans.span("group", {"g": g, "tier": _group_tier(self.store, g, c0)}):
+                score = self._group_compute(Q, c0, g, valid, release)
+            yield g, score
+
+    def _similarity_stream(self, query: List[Ciphertext]) -> Iterator[Tuple[int, Ciphertext]]:
+        """(g, score) of each group, in order, computed as the stream
+        reaches it."""
         Q = self._query_stack(query)
-        for g, c0, valid, release in _stream_groups(self.store, self.ctx):
-            yield self._group_compute(Q, c0, g, valid, release)
+        yield from self._scores(Q, _stream_groups(self.store, self.ctx))
 
     def _stream_and_compare(self, query: List[Ciphertext]) -> List[Ciphertext]:
-        return [f for _, f in compare_in_chunks(self, enumerate(self._similarity_stream(query)))]
+        return [f for _, f in compare_in_chunks(self, self._similarity_stream(query))]
 
     def compute_similarity(self, query: List[Ciphertext]) -> List[Ciphertext]:
-        return list(self._similarity_stream(query))
+        return [s for _, s in self._similarity_stream(query)]
 
     def run_membership(self, query_cts: List[Ciphertext]) -> Ciphertext:
         return self._membership_reduce(self._stream_and_compare(query_cts))
@@ -734,5 +756,6 @@ class StreamedHersSender(_StreamedSender):
                        release: Callable[[], None] = _no_release) -> Ciphertext:
         t3 = senders.ct_dot_seeded(self.ctx, Q, c0, self.store.seed, g, 1, valid)[0]
         release()
-        return self.ctx.rescale_score(self.ctx.relinearize(
-            Ciphertext(t3, self.ctx.fresh_scale * self.store.scale)))
+        with spans.span("score"):
+            return self.ctx.rescale_score(self.ctx.relinearize(
+                Ciphertext(t3, self.ctx.fresh_scale * self.store.scale)))

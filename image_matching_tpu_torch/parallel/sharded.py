@@ -375,9 +375,8 @@ class ShardedStreamedScenario:
         def run(dev):
             view = self.views[dev]
             Q = view._query_stack(_moved(query_cts, dev))
-            scores = ((k, view._group_compute(Q, c0, k, valid, release))
-                      for k, c0, valid, release in
-                      streaming._stream_groups(self.sender.store, self.ctxs[dev], ids[dev]))
+            scores = view._scores(Q, streaming._stream_groups(self.sender.store,
+                                                              self.ctxs[dev], ids[dev]))
             return streaming.compare_in_chunks(view, scores) if compare else list(scores)
 
         self.windows: Dict[str, Dict[str, float]] = {}
