@@ -20,7 +20,7 @@ line is printed):
      Blind-Match's K = 4 x 128 blocks of 15 limbs, ct_dot_seeded at HERS's
      shape, with fewer limbs than the group and for a padding group, each
      also equal to K5's c1 stacked with c0 and contracted by ct_dot; K1
-     also at 2, 28, 160 and 448 rows, with and without a per-row Galois
+     also at 2 to 960 rows, with and without a per-row Galois
      gather, beside the earlier design's ntt.cu where build/ntt_prev/
      holds one (utils/ntt_bench.py); the streamed membership's 64-group
      contraction through ct_dot_seeded and through a stack filled by K5
@@ -596,8 +596,9 @@ def check_alone(ctx, device, gen, record):
 
 
 def check_ntt_shapes(plan, rows):
-    """Phase 2, K1 at the row counts of the main path (2, 28, 160 and 448
-    rows; forward and inverse; plain loads and a per-row Galois gather),
+    """Phase 2, K1 at the row counts of the main path (2 to 960 rows,
+    utils/ntt_bench.py SHAPES; forward and inverse; plain loads and a
+    per-row Galois gather),
     bit-exact with its plain version, timed beside its plain version and,
     where the checkout holds one (build/ntt_prev/ntt.cu, the design before
     this one), beside that earlier kernel built alone, in turns on the same

@@ -44,8 +44,23 @@
 //     Neither pass needs more than 48 KiB of shared memory, so no kernel
 //     attribute is set on any path.
 // What is left: the integer pipes (a Shoup product and two modular adds
-// per butterfly, ~10 instructions) and the twiddle staging, which reads as
-// many words per row pass as it transforms.
+// per butterfly, ~10 instructions).
+//
+// The row pass, a block a row (ntt_rows_kernel), is bound by the
+// instructions it issues, not its bytes: it moves what the column pass
+// moves but took 1.4x as long per stage (H100 SXM, 900 rows of 2^15: 0.147
+// ms for 8 stages against 0.092 for 7), ~100 instructions an element
+// against ~60.  Its excess: a second Shoup product in stages 5-7, a third
+// relayout, and 252 twiddles staged behind a barrier for each 1,024 words.
+// Where a launch holds each limb in several batch rows (the main path's
+// ModUps, mod-downs and compare stacks), ntt_rows_batch_kernel takes the
+// row pass instead: a block walks R' batch rows of one limb and stages its
+// tile's twiddles once for them, all 255 of each sub-block, so every stage
+// takes one staged twiddle and one Shoup product; a row makes two
+// relayouts, its edge layout moved as 16-byte accesses, and row b + 1's
+// loads are issued before row b's butterflies.  At 900 rows it runs 0.110
+// ms, 1.05x the column pass per stage.  ntt_rows_kernel stays for launches
+// of one batch row or too few blocks, and for the slot shards.
 //
 // The first pass's loads take a batch stride, so a slice of limbs (the top
 // limb of a rescale, the special limbs of a mod-down) is read in place, and
@@ -292,6 +307,169 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 8; ++r) dst[base + lay<LAY_A>(r, l)] = x[r];
 }
 
+// Layout C's eight elements of the sub-block at p (x[g * 4 + k] = p[g << 7
+// | l << 2 | k]): two 16-byte accesses a lane where p is 16-byte aligned.
+__device__ __forceinline__ void load_c(uint32_t (&x)[8], const uint32_t *p, int l) {
+  p += l << 2;
+  if (!(reinterpret_cast<uintptr_t>(p) & 15)) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const uint4 v = *reinterpret_cast<const uint4 *>(p + (g << 7));
+      x[g * 4] = v.x, x[g * 4 + 1] = v.y, x[g * 4 + 2] = v.z, x[g * 4 + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = p[((e >> 2) << 7) | (e & 3)];
+  }
+}
+
+__device__ __forceinline__ void store_c(uint32_t *p, const uint32_t (&x)[8], int l) {
+  p += l << 2;
+  if (!(reinterpret_cast<uintptr_t>(p) & 15)) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<uint4 *>(p + (g << 7)) =
+          make_uint4(x[g * 4], x[g * 4 + 1], x[g * 4 + 2], x[g * 4 + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p[((e >> 2) << 7) | (e & 3)] = x[e];
+  }
+}
+
+// The batched row pass (imtpu_ntt with rb > 1), for launches that hand K1
+// the same limb in many batch rows.  Block (row group, limb; tile) walks
+// batch rows b0 .. b0 + rb of one limb, so it stages the tile's twiddles
+// once for rb rows, and stages all 255 of each sub-block (table blocks v =
+// 0..7, psis[(1 << (a + v)) + (blk << v) + g]): every stage takes one
+// staged twiddle and one Shoup product.  A row makes two relayouts where
+// ntt_rows_kernel makes three: the forward loads layout A and stores
+// layout C, the inverse loads C (through perm: its indices as C) and
+// stores A, C's four consecutive elements a lane one 16-byte access.  Row
+// b + 1's loads are issued before row b's butterflies.
+template <bool INV>
+__global__ void __launch_bounds__(128)
+    ntt_rows_batch_kernel(uint32_t *__restrict__ out, const uint32_t *__restrict__ in,
+                          int64_t in_bstride, const int32_t *__restrict__ perm,
+                          int64_t perm_bstride, int first, int last,
+                          const int32_t *__restrict__ limb_idx, int L, int batch, int rb,
+                          int logn, int lsb, const uint32_t *__restrict__ tw,
+                          const uint32_t *__restrict__ tw_sh,
+                          const uint32_t *__restrict__ qs,
+                          const uint32_t *__restrict__ ninv,
+                          const uint32_t *__restrict__ ninv_sh) {
+  constexpr int B = kMaxRowBits;
+  extern __shared__ uint2 stw[];  // staged twiddles of blocks v < 8 (255 << lsb), then data
+  const int n = 1 << logn, a = logn - B;
+  const int li = (int)(blockIdx.x % L), limb = limb_idx[li];
+  const int b0 = (int)(blockIdx.x / L) * rb, b1 = min(b0 + rb, batch);
+  const uint32_t q = qs[limb];
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int blk0 = blockIdx.y << lsb, base = (blk0 + warp) << B;
+  uint32_t *s = reinterpret_cast<uint32_t *>(stw + (((1 << B) - 1) << lsb)) + (warp << B);
+  // the sub-block of batch row b: its input, and where it goes
+  auto src = [&](int b) {
+    return first ? in + (size_t)b * in_bstride + (size_t)li * n + base
+                 : out + ((size_t)b * L + li) * n + base;
+  };
+  auto load = [&](uint32_t(&x)[8], int b) {
+    const uint32_t *p = src(b);
+    if (INV) {  // the first pass: layout C
+      if (perm) {
+        uint32_t idx[8];
+        load_c(idx, reinterpret_cast<const uint32_t *>(perm + (size_t)b * perm_bstride + base), l);
+        p -= base;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = p[idx[e]];
+      } else {
+        load_c(x, p, l);
+      }
+    } else if (first && perm) {  // N = 2^8: the row pass is the forward's first
+      const int32_t *pr = perm + (size_t)b * perm_bstride + base;
+      p -= base;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = p[pr[lay<LAY_A>(r, l)]];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = p[lay<LAY_A>(r, l)];
+    }
+  };
+  uint32_t x[8], y[8] = {};
+  load(x, b0);
+  stage_twiddles(stw, tw + (size_t)limb * n, tw_sh + (size_t)limb * n, a, B, lsb, blk0);
+  __syncthreads();
+  // the staged twiddles of table block v of this warp's sub-block
+#define TWB(v) (stw + ((((1 << (v)) - 1) << lsb) + (warp << (v))))
+  for (int b = b0; b < b1; ++b) {
+    if (b + 1 < b1) load(y, b + 1);
+    uint32_t *dst = out + ((size_t)b * L + li) * n + base;
+    if (!INV) {
+      // stage v pairs index bit 7-v; its twiddle group is index >> (8-v)
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {  // bits 7..5, layout A
+        const uint2 *w = TWB(v);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (!(r & (4 >> v))) ct(x[r], x[r + (4 >> v)], w[r >> (3 - v)], q);
+      }
+      relayout<LAY_A, LAY_B>(x, s, l);
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {  // bits 4..2, layout B: blocks 3..5
+        const uint2 *w = TWB(3 + u) + ((l >> 2) << u);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (!(k & (4 >> u))) ct(x[k], x[k + (4 >> u)], w[k >> (3 - u)], q);
+      }
+      relayout<LAY_B, LAY_C>(x, s, l);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {  // bits 1..0, layout C: blocks 6, 7
+        const uint2 *w = TWB(6 + u) + (l << u);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (!(e & (2 >> u)))
+            ct(x[e], x[e + (2 >> u)], w[((e >> 2) << (5 + u)) | ((e & 3) >> (2 - u))], q);
+      }
+      store_c(dst, x, l);
+    } else {
+      // stage ul pairs index bit ul; its twiddle group is index >> (ul+1),
+      // its table block v = 7-ul
+#pragma unroll
+      for (int ul = 0; ul < 2; ++ul) {  // bits 0..1, layout C: blocks 7, 6
+        const uint2 *w = TWB(7 - ul) + (l << (1 - ul));
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (!(e & (1 << ul)))
+            gs(x[e], x[e + (1 << ul)], w[((e >> 2) << (6 - ul)) | ((e & 3) >> (ul + 1))], q);
+      }
+      relayout<LAY_C, LAY_B>(x, s, l);
+#pragma unroll
+      for (int ul = 2; ul < 5; ++ul) {  // bits 2..4, layout B: blocks 5..3
+        const uint2 *w = TWB(7 - ul) + ((l >> 2) << (4 - ul));
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (!(k & (1 << (ul - 2)))) gs(x[k], x[k + (1 << (ul - 2))], w[k >> (ul - 1)], q);
+      }
+      relayout<LAY_B, LAY_A>(x, s, l);
+#pragma unroll
+      for (int ul = 5; ul < 8; ++ul) {  // bits 5..7, layout A: blocks 2..0
+        const uint2 *w = TWB(7 - ul);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (!(r & (1 << (ul - 5)))) gs(x[r], x[r + (1 << (ul - 5))], w[r >> (ul - 4)], q);
+      }
+      if (last) {
+        const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) x[r] = shoup_mul(x[r], ni, nish, q);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) dst[lay<LAY_A>(r, l)] = x[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) x[r] = y[r];
+  }
+#undef TWB
+}
+
 // Column pass over the 2^A elements j + i * 2^b of 32 columns j per block,
 // b = logw - A (8 for a whole row; fewer for a shard's column subset):
 // the first A stages of the forward transform (reading `in`, the first
@@ -435,6 +613,7 @@ struct Args {
   int L, logn, logw, blk_off;
   const uint32_t *tw, *tw_sh, *qs, *ninv, *ninv_sh;
   cudaStream_t st;
+  int rb;  // batch rows a block of the batched row pass walks (imtpu_ntt)
 };
 
 template <bool INV>
@@ -450,6 +629,27 @@ void rows_pass(const Args &g, int first, int last) {
       g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, first, last,
       g.limb_idx, g.L, g.logn, g.logw, g.blk_off, lsb, g.tw, g.tw_sh, g.qs, g.ninv,
       g.ninv_sh);
+}
+
+template <bool INV>
+void rows_batch_pass(const Args &g, int first, int last) {
+  constexpr int B = kMaxRowBits;
+  const int sub = g.logn - B, lsb = sub < 2 ? sub : 2;
+  const unsigned batch = g.rows / g.L, groups = (batch + g.rb - 1) / g.rb;
+  const dim3 grid(groups * g.L, 1u << (sub - lsb));
+  const size_t smem = ((size_t)((1 << B) - 1) << lsb) * sizeof(uint2) +
+                      ((size_t)1 << (B + lsb)) * sizeof(uint32_t);
+  ntt_rows_batch_kernel<INV><<<grid, 32 << lsb, smem, g.st>>>(
+      g.out, g.in, g.in_bstride, g.perm, g.perm_bstride, first, last, g.limb_idx, g.L,
+      (int)batch, g.rb, g.logn, lsb, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+}
+
+template <bool INV>
+void rows_any_pass(const Args &g, int first, int last) {
+  if (g.rb > 1)
+    rows_batch_pass<INV>(g, first, last);
+  else
+    rows_pass<INV>(g, first, last);
 }
 
 template <bool INV, int R1, int R2>
@@ -484,23 +684,25 @@ void cols_dispatch(const Args &g, int a) {
 // permutation) and uses table row limb_idx[i].  tw/tw_sh are psis/psis_sh
 // (forward) or ipsis/ipsis_sh (inverse), [Ltot, n].  out is [rows, n]; it
 // may alias in when in is contiguous and perm is NULL (each block reads all
-// of its tile before it writes it).  The pass after the first reads and
-// writes out in place.
+// of a row's tile before it writes it).  The pass after the first reads and
+// writes out in place.  rb: the batch rows a block of the row pass walks
+// (ops/ntt.py rows_per_block); 1 runs ntt_rows_kernel, a block a row.
 extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
                          const void *perm, int64_t perm_bstride,
                          const void *limb_idx, int64_t rows, int64_t L,
                          int64_t logn, const void *tw, const void *tw_sh,
                          const void *qs, const void *ninv, const void *ninv_sh,
-                         int64_t inverse, void *stream) {
+                         int64_t inverse, int64_t rb, void *stream) {
   if (rows == 0) return 0;
-  if (logn < kMaxRowBits || logn > 2 * kMaxRowBits || rows > 0x7fffffff || L < 1)
+  if (logn < kMaxRowBits || logn > 2 * kMaxRowBits || rows > 0x7fffffff || L < 1 ||
+      rb < 1 || rb > 0x7fffffff || (rb > 1 && rows % L))
     return (int)cudaErrorInvalidValue;
   const Args g{(uint32_t *)out, (const uint32_t *)in, in_bstride, (int64_t)1 << logn,
                (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
                (unsigned)rows, (int)L, (int)logn, (int)logn, 0, (const uint32_t *)tw,
                (const uint32_t *)tw_sh, (const uint32_t *)qs,
                (const uint32_t *)ninv, (const uint32_t *)ninv_sh,
-               (cudaStream_t)stream};
+               (cudaStream_t)stream, (int)rb};
   const int a = (int)logn - kMaxRowBits;
   if (!inverse) {
     if (a > 0) {
@@ -508,9 +710,9 @@ extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
     }
-    rows_pass<false>(g, a == 0, 1);
+    rows_any_pass<false>(g, a == 0, 1);
   } else {
-    rows_pass<true>(g, 1, a == 0);
+    rows_any_pass<true>(g, 1, a == 0);
     if (a > 0) {
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;

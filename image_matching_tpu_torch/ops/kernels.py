@@ -39,7 +39,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # C entry point -> its arguments before the trailing stream: "p" a device
 # pointer (c_void_p), "i" an int64_t.
 _ENTRIES = {
-    "imtpu_ntt": "ppipipiiipppppi",
+    "imtpu_ntt": "ppipipiiipppppii",
     "imtpu_ntt_pass": "ppiipipiiiiiipppppi",
     "imtpu_ct_dot": "pppiiiiiipppp",
     "imtpu_ct_dot_seeded": "pppiiiiiippppii",
@@ -81,18 +81,19 @@ _counts = {k: 0 for k in KERNELS}
 # the sharded scenarios launch from one thread per card: a count's
 # read-modify-write is guarded so that none is lost
 _counts_lock = threading.Lock()
-# K4's, K6's, K7's, K9's decrypt, K10's and K11's launches by shape, filled
-# only where those kernels launch (no device sync): which shapes they have
-# to serve.  Keys are (pass, B, l, k, form): pass "ks_mac", "seeded_pre",
-# "seeded_c0", "decrypt", "pk_pre", "pk_mac", "lift", "sub_scale",
-# "row_sum" or K11's op; B the [l, N] blocks of the output (K4: its R
-# rotations or relinearizations; K6, K9 and K10: the ciphertexts of the
-# launch); l its limbs (K4: E = l + S); k K4's digits, K9's components,
-# the sub-scale's addend components, K11's head (0: every component) or
-# the row sum's R; form K4's flags (shared key, shared
-# digits: every row takes one digit stack, perms: a per-row automorphism),
-# whether the sub-scale's addend is gathered, or K11's operand b ("same",
-# "plane", "limb", or "" for neg)
+# K1's, K4's, K6's, K7's, K9's decrypt, K10's and K11's launches by shape,
+# filled only where those kernels launch (no device sync): which shapes they
+# have to serve.  Keys are (pass, B, l, k, form): pass "ntt_rows",
+# "ks_mac", "seeded_pre", "seeded_c0", "decrypt", "pk_pre", "pk_mac",
+# "lift", "sub_scale", "row_sum" or K11's op; B the [l, N] blocks of the
+# output (K1: its batch rows; K4: its R rotations or relinearizations; K6,
+# K9 and K10: the ciphertexts of the launch); l its limbs (K4: E = l + S);
+# k K1's R' (the batch rows a row-pass block walks; 1: a block a row), K4's
+# digits, K9's components, the sub-scale's addend components, K11's head
+# (0: every component) or the row sum's R; form K1's direction ("fwd",
+# "inv"), K4's flags (shared key, shared digits: every row takes one digit
+# stack, perms: a per-row automorphism), whether the sub-scale's addend is
+# gathered, or K11's operand b ("same", "plane", "limb", or "" for neg)
 shape_hist: Dict[tuple, int] = {}
 
 _lib = None

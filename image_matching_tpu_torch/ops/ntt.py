@@ -16,8 +16,11 @@ CUDA tensor and run the plain torch version (``ntt_fwd_plain`` /
 blocks in place and can gather the input through an automorphism
 permutation on its way in; it runs as two passes (strided columns, then
 contiguous sub-blocks; mirrored for the inverse), so many blocks share a
-row and few-row launches still fill the card.  The JAX plan's uniform-stage loop
-tables exist only to keep XLA graphs small and are not ported.
+row and few-row launches still fill the card.  Where a launch holds each
+limb in several batch rows, a row-pass block walks R' of them
+(``rows_per_block``), staging its twiddles once.  The JAX plan's
+uniform-stage loop tables exist only to keep XLA graphs small and are not
+ported.
 """
 
 from __future__ import annotations
@@ -33,6 +36,25 @@ from . import modmath as mm
 
 MIN_KERNEL_N = 1 << 8   # K1's row pass: a warp holds a sub-block of 256
 MAX_KERNEL_N = 1 << 16  # K1's two passes: 2^8 x 2^8
+# the batched row pass's choices of R', largest first, each with the least
+# grid it takes: below those, fewer rows a block ran faster (ntt_bench
+# --sweep on the H100: R' 8 won from 640 blocks, 4 from 512)
+ROWS_PER_BLOCK = ((8, 640), (4, 512))
+
+
+def rows_per_block(batch: int, L: int, logn: int) -> int:
+    """R': the batch rows of one limb that a block of K1's batched row pass
+    walks (``csrc/ntt.cu`` ``ntt_rows_batch_kernel``), for a launch of
+    ``batch`` x ``L`` rows of N = 2^logn: the first of ROWS_PER_BLOCK whose
+    grid, L x ceil(batch / R') row groups times the row's tiles of four
+    sub-blocks, holds its least number of blocks; 1 (``ntt_rows_kernel``,
+    a block a row) where none does."""
+    sub = logn - 8
+    tiles = 1 << (sub - min(sub, 2))
+    for rb, least in ROWS_PER_BLOCK:
+        if batch >= rb and L * -(-batch // rb) * tiles >= least:
+            return rb
+    return 1
 
 
 def _bit_reverse_perm(n: int) -> np.ndarray:
@@ -171,6 +193,7 @@ class NttPlan:
                      dtype=np.uint32), dev)
         self.q = mm.to_tensor(np.array(primes, dtype=np.uint32), dev)
         self._idx_cache = {}
+        self._rows_per_block: Dict[Tuple[int, int], int] = {}  # (batch, L) -> R'
         # K1 launches by their row count (batch x limbs), filled only where
         # K1 launches: which row counts the kernel has to serve
         self.rows_hist: Dict[int, int] = {}
@@ -281,12 +304,17 @@ class NttPlan:
         kernels.check_cuda("ntt", idx, tw, tw_sh, self.q, self.ninv, self.ninv_sh)
         kernels.check_cuda("ntt", src, contiguous=False)
         out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+        rb = self._rows_per_block.get((batch, L))
+        if rb is None:
+            rb = self._rows_per_block[batch, L] = rows_per_block(batch, L, self.logn)
+        direction = "inv" if inverse else "fwd"
         kernels.launch(
-            "imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd",
+            "imtpu_ntt", "ntt_" + direction,
             out, kernels.ptr(src), bstride, kernels.ptr(perm), perm_bstride,
             kernels.ptr(idx), batch * L, L, self.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
             kernels.ptr(self.q), kernels.ptr(self.ninv), kernels.ptr(self.ninv_sh),
-            int(inverse))
+            int(inverse), rb)
+        kernels.note_shape("ntt_rows", batch, L, rb, direction)
         rows = batch * L
         self.rows_hist[rows] = self.rows_hist.get(rows, 0) + 1
         return out

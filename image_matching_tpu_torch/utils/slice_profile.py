@@ -19,7 +19,9 @@ and the scores (host clock up to the returned result), the index flags'
 coefficients without the slots' decode (all at once, then one at a time)
 and K9's MAC launches by shape, the launches of one membership by kernel and K1's launches by
 row count (``NttPlan.rows_hist``), K4's, K7's and K11's launches by shape
-(``kernels.shape_hist``), and digests of the membership ciphertext
+(``kernels.shape_hist``), the share of K1's rows that its batched row pass
+takes in one membership and in one index (``shape_hist``'s "ntt_rows"
+keys), and digests of the membership ciphertext
 and the index flags, which two trees that compute bit-equal results print
 alike.  Each profile also counts the memory copies by kind (a pageable
 host-to-device copy blocks the host until the stream drains).  After the
@@ -51,8 +53,8 @@ from ..ops import kernels
 from ..parallel import sharded
 from .io import gen_dataset
 
-OURS = ("ntt_rows_kernel", "ntt_cols_kernel", "ntt_kernel", "ct_dot_kernel",
-        "ct_dot_seeded_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
+OURS = ("ntt_rows_kernel", "ntt_rows_batch_kernel", "ntt_cols_kernel", "ntt_kernel",
+        "ct_dot_kernel", "ct_dot_seeded_kernel", "fbc_kernel", "ks_mac_kernel", "expand_c1_kernel",
         "seeded_pre_kernel", "seeded_c0_kernel", "rescale_lift_kernel", "sub_scale_kernel",
         "decompose_kernel", "tensor_kernel", "decrypt_mac_kernel", "pk_pre_kernel",
         "pk_mac_kernel", "modarith_kernel", "mod_sum_kernel", "psum_mod_kernel")
@@ -69,6 +71,18 @@ def timed(out, label, fn):
 
 def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def k1_batched(hist: dict) -> dict:
+    """K1's rows in ``kernels.shape_hist``'s "ntt_rows" keys: all of them,
+    those that the batched row pass took (R' > 1) and their share, and the
+    launches by (B, L, R', direction)."""
+    k1 = {k[1:]: c for k, c in hist.items() if k[0] == "ntt_rows"}
+    rows = sum(B * L * c for (B, L, _, _), c in k1.items())
+    batched = sum(B * L * c for (B, L, rb, _), c in k1.items() if rb > 1)
+    return {"rows": rows, "batched_rows": batched,
+            "batched_pct": 100.0 * batched / rows if rows else None,
+            "launches": [[list(k), c] for k, c in sorted(k1.items(), key=lambda kv: -kv[1])]}
 
 
 def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
@@ -143,7 +157,14 @@ def run(approach: int, log2n: int, streamed: bool, shards: int, say, log):
         f"K1 launches by rows {json.dumps(dict(sorted(hist.items())))}")
     shapes = sorted(kernels.shape_hist.items(), key=lambda kv: -kv[1])
     say("one membership: K4, K7 and K11 launches by (pass, B, l, k, form) "
-        + json.dumps([[list(k), v] for k, v in shapes]))
+        + json.dumps([[list(k), v] for k, v in shapes if k[0] != "ntt_rows"]))
+    say("one membership: K1's rows on the batched row pass "
+        + json.dumps(k1_batched(kernels.shape_hist)))
+    hist.clear()
+    kernels.shape_hist.clear()
+    timed({}, "index_s", lambda: sender.run_index(qcts))
+    say(f"one index: K1 launches by rows {json.dumps(dict(sorted(hist.items())))}; K1's rows "
+        f"on the batched row pass {json.dumps(k1_batched(kernels.shape_hist))}")
 
     profiled = [("membership", lambda: sender.run_membership(qcts)),
                 ("similarity", lambda: sender.compute_similarity(qcts))]

@@ -110,17 +110,58 @@ def test_ntt_kernel_row_counts(n):
                 got = _launched("ntt_inv" if inverse else "ntt_fwd", lambda: fn(a, lim, perm))
                 assert torch.equal(got, plain(ntt.permute_rows(a, perm), lim)), (rows, inverse)
         for inverse in (False, True):
-            tw, tw_sh = ((ctx.plan.ipsis, ctx.plan.ipsis_sh) if inverse
-                         else (ctx.plan.psis, ctx.plan.psis_sh))
             x = a.clone()
-            kernels.launch("imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd", x,
-                           kernels.ptr(x), len(lim) * n, 0, 0,
-                           kernels.ptr(ctx.plan.limb_index(lim)), x.numel() // n, len(lim),
-                           ctx.plan.logn, kernels.ptr(tw), kernels.ptr(tw_sh),
-                           kernels.ptr(ctx.plan.q), kernels.ptr(ctx.plan.ninv),
-                           kernels.ptr(ctx.plan.ninv_sh), int(inverse))
+            _k1(ctx.plan, x, x, lim, inverse, None,
+                ntt.rows_per_block(x.numel() // (n * len(lim)), len(lim), ctx.plan.logn))
             plain = ctx.plan.inv_plain if inverse else ctx.plan.fwd_plain
             assert torch.equal(x, plain(a, lim)), (rows, inverse, "in place")
+
+
+def _k1(plan, out, a, limbs, inverse, perm, rb):
+    """K1 through its C entry point into ``out`` (which may be ``a``), a
+    row-pass block walking ``rb`` batch rows of one limb."""
+    src, batch, bstride = kernels.row_blocks(a)
+    tw, tw_sh = (plan.ipsis, plan.ipsis_sh) if inverse else (plan.psis, plan.psis_sh)
+    pb = plan.n if perm is not None and perm.shape[0] > 1 else 0
+    kernels.launch("imtpu_ntt", "ntt_inv" if inverse else "ntt_fwd", out, kernels.ptr(src),
+                   bstride, kernels.ptr(perm), pb, kernels.ptr(plan.limb_index(limbs)),
+                   batch * len(limbs), len(limbs), plan.logn, kernels.ptr(tw),
+                   kernels.ptr(tw_sh), kernels.ptr(plan.q), kernels.ptr(plan.ninv),
+                   kernels.ptr(plan.ninv_sh), int(inverse), rb)
+    return out
+
+
+@pytest.mark.parametrize("n", [256, 512, 8192, 32768])
+def test_ntt_batched_row_pass_every_mode(n):
+    """K1's batched row pass (a row-pass block walking rb batch rows of
+    one limb) at rb 2, 3 and 8 over 1, 5 and 16 batch rows, so that the
+    last row group is short: plain loads, a per-row and a shared
+    permutation, a slice of limbs read in place (a batch stride apart
+    from the row), written over its own input, forward and inverse (at N =
+    2^8 the row pass is the forward's first and the inverse's last, with
+    1/N), each bit-exact with the plain transforms."""
+    dev = _device()
+    p = SchemeParams.create(ring_dim=max(n, 512), mult_depth=11, security="none")
+    primes = (p.q_primes + p.sp_primes)[:6]
+    plan = ntt.NttPlan(n, primes, [root_of_unity(q, 2 * n) for q in primes], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for batch in (1, 5, 16):
+        x = _residues(gen, (batch, 6, n), plan.q.long()[:, None])
+        perms = torch.from_numpy(np.stack([plan.auto_perm(pow(5, r, 2 * n))
+                                           for r in range(1, batch + 1)])).to(dev)
+        for a, limbs in ((x, tuple(range(6))), (x[:, 2:4], (2, 3))):
+            for perm in (None, perms, perms[:1]):
+                for inverse in (False, True):
+                    plain = plan.inv_plain if inverse else plan.fwd_plain
+                    want = plain(ntt.permute_rows(a, perm), limbs)
+                    for rb in (2, 3, 8):
+                        got = _k1(plan, torch.empty(a.shape, dtype=torch.int32, device=dev),
+                                  a, limbs, inverse, perm, rb)
+                        assert torch.equal(got, want), (batch, limbs, perm is None, inverse, rb)
+                        if perm is None and a is x:
+                            y = a.clone()
+                            _k1(plan, y, y, limbs, inverse, None, rb)
+                            assert torch.equal(y, want), (batch, inverse, rb, "in place")
 
 
 def test_batched_compare_on_card_matches_cpu():

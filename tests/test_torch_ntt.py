@@ -125,3 +125,30 @@ def test_k1_row_histogram_counts_launches_by_rows(monkeypatch):
     assert tp.rows_hist == {12: 2, 3: 1}
     assert tp.replica("cpu").rows_hist == {}
     tp.rows_hist.clear()
+
+
+def test_k1_launch_notes_rows_per_block(monkeypatch):
+    """NttPlan._launch hands K1 the R' of ``rows_per_block`` (the batch
+    rows of one limb that a row-pass block walks) as its last argument,
+    notes each launch in ``kernels.shape_hist`` under ("ntt_rows", B, L,
+    R', direction), and still fills rows_hist (launch stubbed, as above)."""
+    from image_matching_tpu_torch.ops import kernels
+
+    _, tp, _ = _plans(32768, 2)
+    launched = []
+    monkeypatch.setattr(kernels, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "launch", lambda *a: launched.append((a[1], a[-1])))
+    monkeypatch.setattr(kernels, "shape_hist", {})
+    tp.rows_hist.clear()
+    big = torch.zeros((256, 2, 32768), dtype=torch.int32)
+    rb = tntt.rows_per_block(256, 2, 15)
+    assert rb > 1 and tntt.rows_per_block(1, 2, 15) == 1
+    tp._launch(big, (0, 1), False, None)
+    tp._launch(big, (0, 1), True, torch.zeros((256, 32768), dtype=torch.int32))
+    tp._launch(big[:1, 1:], (1,), True, None)
+    assert launched == [("ntt_fwd", rb), ("ntt_inv", rb), ("ntt_inv", 1)]
+    assert kernels.shape_hist == {("ntt_rows", 256, 2, rb, "fwd"): 1,
+                                  ("ntt_rows", 256, 2, rb, "inv"): 1,
+                                  ("ntt_rows", 1, 1, 1, "inv"): 1}
+    assert tp.rows_hist == {512: 2, 1: 1}
+    tp.rows_hist.clear()
