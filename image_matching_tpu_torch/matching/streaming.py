@@ -667,8 +667,9 @@ class _StreamedSender(senders.Sender):
 
     def _similarity_stream(self, query: List[Ciphertext]) -> Iterator[Tuple[int, Ciphertext]]:
         """(g, score) of each group, in order, computed as the stream
-        reaches it."""
-        Q = self._query_stack(query)
+        reaches it; the query's preparation in an ``imtpu.query`` span."""
+        with spans.span("query", {"cts": len(query)}):
+            Q = self._query_stack(query)
         yield from self._scores(Q, _stream_groups(self.store, self.ctx))
 
     def _stream_and_compare(self, query: List[Ciphertext]) -> List[Ciphertext]:

@@ -9,6 +9,9 @@ one request carry its id in their ``args``:
 - ``imtpu.membership``, ``imtpu.index`` (``MatchingProtocol``): one served
   request; ``request`` (``REQUESTS``, advanced on every request, traced or
   not), ``approach`` and ``cts``, the query's ciphertexts;
+- ``imtpu.query`` (the streamed senders): the query's preparation before
+  the first group, ``cts`` its ciphertexts (HyDia's baby-step rotations,
+  HERS's stack of its ciphertexts);
 - ``imtpu.group`` (the streamed senders): one group's work, ``g`` and its
   ``tier`` (resident, host, peer or pad); it closes before the score is
   handed on, so no compare falls inside it;

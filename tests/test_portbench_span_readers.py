@@ -1,8 +1,8 @@
 """The benchmark's readers of the port's spans (``portbench/metrics/``:
-``score_ms``, ``stream_idle_ms``, ``compare_idle_ms``) on a slice built by
-``portbench.trace.from_events`` from hand-made events, with hand-worked
-values, and reading nothing where the spans are missing or count other
-requests than the slice's."""
+``score_ms``, ``stream_idle_ms``, ``compare_idle_ms``, ``query_ms``) on a
+slice built by ``portbench.trace.from_events`` from hand-made events, with
+hand-worked values, and reading nothing where the spans are missing or
+count other requests than the slice's."""
 
 import importlib.util
 from pathlib import Path
@@ -12,13 +12,14 @@ import pytest
 from portbench import trace
 
 METRICS = Path(__file__).resolve().parents[1] / "portbench" / "metrics"
-READERS = ("score_ms", "stream_idle_ms", "compare_idle_ms")
+READERS = ("score_ms", "stream_idle_ms", "compare_idle_ms", "query_ms")
 
 # Two requests in a slice of [0, 1) s.  Host spans (name, start, end):
 SPANS = [
     ("portbench.slice", 0.0, 1.0),
     ("portbench.request", 0.0, 0.46),
     ("imtpu.membership", 0.0, 0.45),
+    ("imtpu.query", 0.0, 0.02),
     ("imtpu.group", 0.02, 0.10),
     ("imtpu.score", 0.05, 0.10),
     ("imtpu.group", 0.10, 0.18),
@@ -26,6 +27,7 @@ SPANS = [
     ("imtpu.compare", 0.20, 0.40),
     ("portbench.request", 0.46, 1.0),
     ("imtpu.index", 0.47, 0.95),
+    ("imtpu.query", 0.47, 0.50),
     ("imtpu.group", 0.50, 0.60),
     ("imtpu.score", 0.55, 0.60),
     ("imtpu.compare", 0.60, 0.90),
@@ -38,6 +40,7 @@ OPS = [
     ("void ntt_rows_kernel<0>(int*)", 0.12, 0.18, 0.14),    # group 1's score, after a gap
     ("void tensor_kernel(int*)", 0.21, 0.30, 0.205),        # the compare
     ("void ntt_cols_kernel<0>(int*)", 0.35, 0.45, 0.34),    # the compare, after a gap
+    ("void ks_mac_kernel<1>(int*)", 0.48, 0.50, 0.475),    # the index's query
     ("void ct_dot_seeded_kernel(int*)", 0.52, 0.55, 0.51),  # group 0 of the index
     ("void fbc_kernel(int*)", 0.56, 0.65, 0.555),           # its score, after a gap
     ("void tensor_kernel(int*)", 0.65, 0.80, 0.61),         # the compare
@@ -64,6 +67,26 @@ def test_score_ms_is_the_work_launched_inside_score_spans():
     # 0.02 + 0.06 + 0.09 s launched inside a score span, over two requests;
     # group 0's contraction and the query's baby steps are outside
     assert reader("score_ms")(hand_slice()) == pytest.approx((0.02 + 0.06 + 0.09) / 2 * 1e3)
+
+
+def test_query_ms_is_the_work_launched_inside_query_spans():
+    # the membership's baby steps (0.04 s, launched at 0.01) and the
+    # index's query (0.02 s, launched at 0.475), over two requests; the
+    # baby steps run on past their span's end and count whole
+    assert reader("query_ms")(hand_slice()) == pytest.approx((0.04 + 0.02) / 2 * 1e3)
+
+
+def test_query_ms_reads_nothing_without_query_spans():
+    # a program without the span (the parent of its first reader) reads
+    # nothing, while the other spans still read
+    spans = [sp for sp in SPANS if sp[0] != "imtpu.query"]
+    assert reader("query_ms")(hand_slice(spans)) is None
+    assert reader("score_ms")(hand_slice(spans)) == reader("score_ms")(hand_slice())
+
+
+def test_query_ms_reads_nothing_where_no_work_was_launched_in_its_spans():
+    spans = [sp for sp in SPANS if sp[0] != "imtpu.query"] + [("imtpu.query", 0.46, 0.47)]
+    assert reader("query_ms")(hand_slice(spans)) is None
 
 
 def test_stream_idle_ms_is_the_device_idle_inside_group_spans():

@@ -23,13 +23,12 @@ from image_matching_tpu.matching.enrollers import diag_bsgs_n1
 from image_matching_tpu.matching.protocol import MatchingProtocol as JProto
 from image_matching_tpu.matching.vector_utils import normalize as jnormalize
 from image_matching_tpu.utils import io as dio
-from image_matching_tpu.utils import native
 from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
 from image_matching_tpu_torch.harness import enroll_cache
 from image_matching_tpu_torch.matching import enrollers, streaming
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
-from image_matching_tpu_torch.utils import native as tnative
 
+import _native_lock
 from _torch_parity import assert_same, jax_noise, jax_seeded_noise, port_cfg, port_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,7 +51,7 @@ def _db(seed=2):
 
 
 def _needs_native():
-    if not (native.available() and tnative.available()):
+    if not _native_lock.available():
         pytest.skip("native library not built")
 
 

@@ -19,6 +19,7 @@ from image_matching_tpu_torch.utils import carry
 from image_matching_tpu_torch.utils import io as tio
 from image_matching_tpu_torch.utils import native as tnative
 
+import _native_lock
 from _torch_parity import port_params, u32
 
 
@@ -52,7 +53,7 @@ def test_write_dataset_byte_equal(tmp_path):
 @pytest.mark.parametrize("native_lib", [True, False], ids=["native", "python"])
 def test_read_dataset_equal(tmp_path, monkeypatch, native_lib):
     path, q, db = _dat(tmp_path)
-    if native_lib and not tnative.available():
+    if native_lib and not _native_lock.available():
         pytest.skip("native library not built")
     if not native_lib:
         monkeypatch.setattr(tnative, "available", lambda: False)
@@ -66,7 +67,7 @@ def test_read_dataset_equal(tmp_path, monkeypatch, native_lib):
 @pytest.mark.parametrize("max_vals", [1, 25, 10_000])
 def test_parse_dat_equal(tmp_path, max_vals):
     path, _, _ = _dat(tmp_path)
-    if not (jnative.available() and tnative.available()):
+    if not _native_lock.available():
         pytest.skip("native library not built")
     want, got = jnative.parse_dat(str(path), max_vals), tnative.parse_dat(str(path), max_vals)
     assert got.dtype == want.dtype == np.float64

@@ -1,9 +1,9 @@
 """The served request's spans (``image_matching_tpu_torch/utils/spans.py``)
 on the streamed HyDia store of tests/test_torch_streaming.py (ring 512, dim
-64, 300 vectors in 2 host-tier groups), the port alone: off, a shared
-no-op; on, the spans of one request counted, nested and apart as the
-benchmark's readers assume, the results unchanged, and the request ids in
-the Chrome trace."""
+64, 300 vectors in 2 host-tier groups), and the query's span on streamed
+HERS too, the port alone: off, a shared no-op; on, the spans of one
+request counted, nested and apart as the benchmark's readers assume, the
+results unchanged, and the request ids in the Chrome trace."""
 
 import json
 import math
@@ -32,6 +32,16 @@ def served():
     encrypted query."""
     query, db = dio.gen_dataset(NVEC, DIM, seed=1)
     proto = MatchingProtocol.setup(5, db, CFG, ctx=CkksContext(PARAMS, seed=7, device="cpu"),
+                                   streamed=True, resident_budget=0, engine="device")
+    return proto, proto.encrypt_query(query)
+
+
+@pytest.fixture(scope="module")
+def served_hers():
+    """The streamed HERS protocol on the same data and layout (approach 4
+    needs the depth of approach 5), and its query of DIM ciphertexts."""
+    query, db = dio.gen_dataset(NVEC, DIM, seed=1)
+    proto = MatchingProtocol.setup(4, db, CFG, ctx=CkksContext(PARAMS, seed=7, device="cpu"),
                                    streamed=True, resident_budget=0, engine="device")
     return proto, proto.encrypt_query(query)
 
@@ -133,3 +143,20 @@ def test_the_chrome_trace_carries_rising_request_ids(served, three, tmp_path):
     _, after = _traced(lambda: proto.membership(q), tmp_path / "after.json")
     assert _named(after, "membership")[0]["args"]["request"] == \
         _named(before, "membership")[0]["args"]["request"] + 2
+
+
+@pytest.mark.parametrize("fixture", ["served_hers", "served"])
+def test_each_request_prepares_its_query_in_one_span_before_its_groups(fixture, request,
+                                                                      tmp_path):
+    """Approaches 4 and 5: one ``imtpu.query`` span a request, inside it,
+    closed before its first ``imtpu.group`` opens."""
+    proto, q = request.getfixturevalue(fixture)
+    _, events = _traced(lambda: (proto.membership(q), proto.index(q)), tmp_path / "t.json")
+    reqs = [e for e in events if e["name"] in ("imtpu.membership", "imtpu.index")]
+    queries, groups = _named(events, "query"), _named(events, "group")
+    assert len(reqs) == len(queries) == 2
+    for req, qs in zip(reqs, queries):
+        assert _within(qs, req) and qs["args"]["cts"] == len(q)
+        mine = [g for g in groups if _within(g, req)]
+        assert len(mine) == proto.sender.store.num_groups
+        assert qs["ts"] + qs["dur"] <= min(g["ts"] for g in mine)

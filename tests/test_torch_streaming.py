@@ -23,7 +23,6 @@ from image_matching_tpu.matching.config import MatchConfig
 from image_matching_tpu.matching.protocol import MatchingProtocol as JProto
 from image_matching_tpu.ops import prng as jprng
 from image_matching_tpu.utils import io as dio
-from image_matching_tpu.utils import native
 from image_matching_tpu_torch.ckks.context import CkksContext as TCtx
 from image_matching_tpu_torch.ckks.context import seeded_c0_plain, seeded_pre_plain
 from image_matching_tpu_torch.ckks.poly_eval import DEPTH_TO_DEGREE
@@ -33,8 +32,8 @@ from image_matching_tpu_torch.ops import kernels
 from image_matching_tpu_torch.ops import modmath as tmm
 from image_matching_tpu_torch.ops import prng
 from image_matching_tpu_torch.utils import carry
-from image_matching_tpu_torch.utils import native as tnative
 
+import _native_lock
 from _torch_parity import (assert_same, carry_context, jax_noise, jax_seeded_noise, port_cfg,
                            port_params, u32)
 
@@ -147,7 +146,7 @@ def test_seeded_passes_against_separate_transforms(ctxs):
 
 
 def test_seeded_host_enroller_bit_exact(ctxs):
-    if not (native.available() and tnative.available()):
+    if not _native_lock.available():
         pytest.skip("native library not built")
     jctx, tctx = ctxs
     jctx._rng = np.random.default_rng(12)
@@ -286,7 +285,7 @@ def test_engine_choice(monkeypatch):
 def test_native_engine_store_bit_exact():
     """The host C++ engine, asked for by name, enrolls the JAX native
     engine's groups."""
-    if not (native.available() and tnative.available()):
+    if not _native_lock.available():
         pytest.skip("native library not built")
     _, db = dio.gen_dataset(NVEC, DIM, seed=4)
     js = jstreaming.enroll_diag_streamed(JCtx(PARAMS, seed=9), CFG, db, resident_budget=0,
