@@ -6,7 +6,8 @@
 // to bit-reversed evaluation order with twiddle psis[m + g] at stage m,
 // group g; inverse is Gentleman-Sande with ipsis[h + g] and a final 1/N.
 // All outputs are canonical residues, so the result is bit-identical to
-// the JAX plan's (an exact transform over Z_q has one correct output).
+// the JAX plan's (an exact transform over Z_q has one correct output);
+// between stages the values are lazy (below).
 //
 // What bounds it on the H100: device memory for many rows (each row is
 // read and written once, N * 4 B each way; the bound at 160 rows of 2^15
@@ -43,8 +44,35 @@
 //     which at the main path's row counts stays mostly in the 50 MB L2.
 //     Neither pass needs more than 48 KiB of shared memory, so no kernel
 //     attribute is set on any path.
-// What is left: the integer pipes (a Shoup product and two modular adds
-// per butterfly, ~10 instructions).
+// What is left: the integer pipes, which the lazy residues below relieve.
+//
+// Lazy residues (Harvey's butterfly).  Every value a butterfly reads or
+// writes lies in [0, 2q), which 32 bits hold because every modulus is
+// below 2^31 (ops/ntt.py NttPlan refuses more):
+//   - shoup_lazy drops the Shoup product's correction: a w - hi q, hi =
+//     floor(a wsh / 2^32), falls short of a w / q by less than 2, so it
+//     lies in [0, 2q) for any a < 2^32;
+//   - Cooley-Tukey reduces u and t = v w once each into [0, q) (red: one
+//     subtraction and a min) and writes u + t and u - t + q, both in
+//     [0, 2q); Gentleman-Sande reduces u and v and writes u + v and the
+//     lazy product of u - v + q; mul2's inner product stays below 2q,
+//     which its outer product takes;
+//   - red is min(x, x - q), one VIADDMNMX on sm_90a.  A butterfly is
+//     now the Shoup product's IMAD.HI and two IMADs, two VIADDMNMX and
+//     two adds; with modmath.cuh's full reductions (shoup_mul, mod_sub,
+//     mod_add) it was the same three products, three ISETP + SEL pairs
+//     and about four adds.  In SASS (nvcc 12.8) the forward column pass
+//     at N = 2^15 (56 butterflies a thread) runs 1,048 instructions a
+//     thread where it ran 1,368, 5.7 fewer a butterfly, 3.7 of them on
+//     the ALU pipe (647 -> 439); the batched row pass 928 and 944 (forward,
+//     inverse) where it ran 1,112 and 1,128.
+// Values become canonical again where a transform ends: the forward row
+// pass reduces its outputs once before its store, and the inverse's 1/N
+// is the full shoup_mul.  Inside one imtpu_ntt call the rows' round trip
+// through `out` between the passes carries [0, 2q) values, which nothing
+// else reads.  Each pass that imtpu_ntt_pass runs alone ends canonical
+// (Args::canon): a slot shard's all-to-all between the passes carries
+// plain residues, and the entry point, not a setting, decides.
 //
 // The row pass, a block a row (ntt_rows_kernel), is bound by the
 // instructions it issues, not its bytes: it moves what the column pass
@@ -104,35 +132,69 @@ __device__ __forceinline__ void stage_twiddles(uint2 *stw,
   }
 }
 
-// Cooley-Tukey: (u, v) -> (u + v w, u - v w).
-__device__ __forceinline__ void ct(uint32_t &u, uint32_t &v, uint2 w, uint32_t q) {
-  const uint32_t t = shoup_mul(v, w.x, w.y, q);
-  v = mod_sub(u, t, q);
-  u = mod_add(u, t, q);
+// The lazy residues (see the top of this file): every value a butterfly
+// reads or writes lies in [0, 2q).  x mod q for x < 2q: x - q wraps above
+// x when x < q.
+__device__ __forceinline__ uint32_t red(uint32_t x, uint32_t q) { return min(x, x - q); }
+
+// a * w mod q or that plus q, for any a < 2^32: Shoup's product without
+// its correction (the quotient hi falls short of a w / q by less than 2).
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w, uint32_t wsh,
+                                               uint32_t q) {
+  return a * w - __umulhi(a, wsh) * q;
 }
 
-// Gentleman-Sande: (u, v) -> (u + v, (u - v) w).
+// Cooley-Tukey: (u, v) -> (u + t, u - t) with t = v w, up to multiples of q.
+__device__ __forceinline__ void ct_t(uint32_t &u, uint32_t &v, uint32_t t, uint32_t q) {
+  t = red(t, q);
+  u = red(u, q);
+  v = u - t + q;
+  u += t;
+}
+__device__ __forceinline__ void ct(uint32_t &u, uint32_t &v, uint2 w, uint32_t q) {
+  ct_t(u, v, shoup_lazy(v, w.x, w.y, q), q);
+}
+
+// Gentleman-Sande: (u, v) -> (u + v, (u - v) w); returns u - v + q.
+__device__ __forceinline__ uint32_t gs_d(uint32_t &u, uint32_t v, uint32_t q) {
+  u = red(u, q);
+  v = red(v, q);
+  const uint32_t d = u - v + q;
+  u += v;
+  return d;
+}
 __device__ __forceinline__ void gs(uint32_t &u, uint32_t &v, uint2 w, uint32_t q) {
-  const uint32_t d = mod_sub(u, v, q);
-  u = mod_add(u, v, q);
-  v = shoup_mul(d, w.x, w.y, q);
+  v = shoup_lazy(gs_d(u, v, q), w.x, w.y, q);
 }
 
 // The same with the twiddle w = t * c given as two factors (each with its
 // Shoup companion): psis[x | y] = psis[x] * psis[y] for disjoint bits,
-// because the exponent brv(x | y) = brv(x) + brv(y).
+// because the exponent brv(x | y) = brv(x) + brv(y).  The inner product
+// stays below 2q, which the outer takes as any a < 2^32.
 __device__ __forceinline__ uint32_t mul2(uint32_t x, uint2 t, uint2 c, uint32_t q) {
-  return shoup_mul(shoup_mul(x, t.x, t.y, q), c.x, c.y, q);
+  return shoup_lazy(shoup_lazy(x, t.x, t.y, q), c.x, c.y, q);
 }
 __device__ __forceinline__ void ct2(uint32_t &u, uint32_t &v, uint2 t, uint2 c, uint32_t q) {
-  const uint32_t w = mul2(v, t, c, q);
-  v = mod_sub(u, w, q);
-  u = mod_add(u, w, q);
+  ct_t(u, v, mul2(v, t, c, q), q);
 }
 __device__ __forceinline__ void gs2(uint32_t &u, uint32_t &v, uint2 t, uint2 c, uint32_t q) {
-  const uint32_t d = mod_sub(u, v, q);
-  u = mod_add(u, v, q);
-  v = mul2(d, t, c, q);
+  v = mul2(gs_d(u, v, q), t, c, q);
+}
+
+// A pass's outputs: x[r] / N where the inverse ends (`div`), canonical
+// where `canon` asks, else left in [0, 2q).
+template <int E>
+__device__ __forceinline__ void finish(uint32_t (&x)[E], bool div, bool canon,
+                                       const uint32_t *ninv, const uint32_t *ninv_sh, int limb,
+                                       uint32_t q) {
+  if (div) {
+    const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = shoup_mul(x[r], ni, nish, q);
+  } else if (canon) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = red(x[r], q);
+  }
 }
 
 // Row pass over contiguous sub-blocks of 256 elements: the last 8 stages
@@ -179,7 +241,7 @@ __global__ void __launch_bounds__(128)
     ntt_rows_kernel(uint32_t *__restrict__ out, const uint32_t *__restrict__ in,
                     int64_t in_bstride, int64_t in_lstride,
                     const int32_t *__restrict__ perm, int64_t perm_bstride,
-                    int first, int last, const int32_t *__restrict__ limb_idx,
+                    int first, int last, int canon, const int32_t *__restrict__ limb_idx,
                     int L, int logn, int logw, int blk_off, int lsb,
                     const uint32_t *__restrict__ tw,
                     const uint32_t *__restrict__ tw_sh,
@@ -295,13 +357,9 @@ __global__ void __launch_bounds__(128)
       for (int r = 0; r < 8; ++r)
         if (!(r & (1 << (ul - 5)))) gs(x[r], x[r + (1 << (ul - 5))], w[r >> (ul - 4)], q);
     }
-    if (last) {
-      const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) x[r] = shoup_mul(x[r], ni, nish, q);
-    }
   }
 #undef TWB
+  finish(x, INV && last, !INV || canon, ninv, ninv_sh, limb, q);
   uint32_t *dst = out + row * w;
 #pragma unroll
   for (int r = 0; r < 8; ++r) dst[base + lay<LAY_A>(r, l)] = x[r];
@@ -428,6 +486,7 @@ __global__ void __launch_bounds__(128)
           if (!(e & (2 >> u)))
             ct(x[e], x[e + (2 >> u)], w[((e >> 2) << (5 + u)) | ((e & 3) >> (2 - u))], q);
       }
+      finish(x, false, true, ninv, ninv_sh, limb, q);
       store_c(dst, x, l);
     } else {
       // stage ul pairs index bit ul; its twiddle group is index >> (ul+1),
@@ -456,11 +515,7 @@ __global__ void __launch_bounds__(128)
         for (int r = 0; r < 8; ++r)
           if (!(r & (1 << (ul - 5)))) gs(x[r], x[r + (1 << (ul - 5))], w[r >> (ul - 4)], q);
       }
-      if (last) {
-        const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) x[r] = shoup_mul(x[r], ni, nish, q);
-      }
+      finish(x, last, false, ninv, ninv_sh, limb, q);
 #pragma unroll
       for (int r = 0; r < 8; ++r) dst[lay<LAY_A>(r, l)] = x[r];
     }
@@ -485,7 +540,7 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
                                 const int32_t *__restrict__ perm,
                                 int64_t perm_bstride,
                                 const int32_t *__restrict__ limb_idx, int L,
-                                int logn, int logw,
+                                int logn, int logw, int canon,
                                 const uint32_t *__restrict__ tw,
                                 const uint32_t *__restrict__ tw_sh,
                                 const uint32_t *__restrict__ qs,
@@ -543,12 +598,14 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
               ct(x[g * K2 + k2], x[g * K2 + k2 + h],
                  w[((tc * G + g) << u) | (k2 >> (R2 - u))], q);
       }
+      finish(x, false, canon, ninv, ninv_sh, limb, q);
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int k2 = 0; k2 < K2; ++k2)
           dst[j + ((((tc * G + g) << R2) | k2) << b)] = x[g * K2 + k2];
     } else {
+      finish(x, false, canon, ninv, ninv_sh, limb, q);
 #pragma unroll
       for (int k = 0; k < E; ++k) dst[j + (((k << R2) | tc) << b)] = x[k];
     }
@@ -595,10 +652,9 @@ __global__ void ntt_cols_kernel(uint32_t *__restrict__ out,
       for (int k = 0; k < E; ++k)
         if (!(k & h)) gs(x[k], x[k + h], w[k >> (u + 1)], q);
     }
-    const uint32_t ni = ninv[limb], nish = ninv_sh[limb];
+    finish(x, true, true, ninv, ninv_sh, limb, q);
 #pragma unroll
-    for (int k = 0; k < E; ++k)
-      dst[j + (((k << R2) | tc) << b)] = shoup_mul(x[k], ni, nish, q);
+    for (int k = 0; k < E; ++k) dst[j + (((k << R2) | tc) << b)] = x[k];
   }
 }
 
@@ -613,7 +669,8 @@ struct Args {
   int L, logn, logw, blk_off;
   const uint32_t *tw, *tw_sh, *qs, *ninv, *ninv_sh;
   cudaStream_t st;
-  int rb;  // batch rows a block of the batched row pass walks (imtpu_ntt)
+  int rb;     // batch rows a block of the batched row pass walks (imtpu_ntt)
+  int canon;  // a pass alone (imtpu_ntt_pass): canonical outputs
 };
 
 template <bool INV>
@@ -626,7 +683,7 @@ void rows_pass(const Args &g, int first, int last) {
   const size_t smem = ((size_t)(((1 << KS) - 1) << lsb) + NT) * sizeof(uint2) +
                       ((size_t)1 << (B + lsb)) * sizeof(uint32_t);
   ntt_rows_kernel<INV><<<grid, 32 << lsb, smem, g.st>>>(
-      g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, first, last,
+      g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, first, last, g.canon,
       g.limb_idx, g.L, g.logn, g.logw, g.blk_off, lsb, g.tw, g.tw_sh, g.qs, g.ninv,
       g.ninv_sh);
 }
@@ -659,7 +716,7 @@ void cols_pass(const Args &g) {
   const size_t smem = ((1 << A) - 1) * sizeof(uint2) + (size_t)(32 << A) * sizeof(uint32_t);
   ntt_cols_kernel<INV, R1, R2><<<grid, 32 << R2, smem, g.st>>>(
       g.out, g.in, g.in_bstride, g.in_lstride, g.perm, g.perm_bstride, g.limb_idx, g.L,
-      g.logn, g.logw, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
+      g.logn, g.logw, g.canon, g.tw, g.tw_sh, g.qs, g.ninv, g.ninv_sh);
 }
 
 template <bool INV>
@@ -702,7 +759,7 @@ extern "C" int imtpu_ntt(void *out, const void *in, int64_t in_bstride,
                (unsigned)rows, (int)L, (int)logn, (int)logn, 0, (const uint32_t *)tw,
                (const uint32_t *)tw_sh, (const uint32_t *)qs,
                (const uint32_t *)ninv, (const uint32_t *)ninv_sh,
-               (cudaStream_t)stream, (int)rb};
+               (cudaStream_t)stream, (int)rb, 0};
   const int a = (int)logn - kMaxRowBits;
   if (!inverse) {
     if (a > 0) {
@@ -749,7 +806,7 @@ extern "C" int imtpu_ntt_pass(void *out, const void *in, int64_t in_bstride,
                (const int32_t *)perm, perm_bstride, (const int32_t *)limb_idx,
                (unsigned)rows, (int)L, (int)logn, (int)logw, (int)blk_off,
                (const uint32_t *)tw, (const uint32_t *)tw_sh, (const uint32_t *)qs,
-               (const uint32_t *)ninv, (const uint32_t *)ninv_sh, (cudaStream_t)stream};
+               (const uint32_t *)ninv, (const uint32_t *)ninv_sh, (cudaStream_t)stream, 1, 1};
   if (cols) {
     if (inverse)
       cols_dispatch<true>(g, (int)a);

@@ -36,6 +36,7 @@ from . import modmath as mm
 
 MIN_KERNEL_N = 1 << 8   # K1's row pass: a warp holds a sub-block of 256
 MAX_KERNEL_N = 1 << 16  # K1's two passes: 2^8 x 2^8
+MAX_MODULUS = 1 << 31   # K1 keeps residues below 2q between its stages, in 32 bits
 # the batched row pass's choices of R', largest first, each with the least
 # grid it takes: below those, fewer rows a block ran faster (ntt_bench
 # --sweep on the H100: R' 8 won from 640 blocks, 4 from 512)
@@ -160,14 +161,16 @@ def ntt_inv_plain(a: torch.Tensor, ipsis: torch.Tensor, q: torch.Tensor,
 
 
 class NttPlan:
-    """NTT tables for a fixed prime chain (Q limbs + specials), on one
-    device: the card unless the caller asks for the CPU (without a GPU the
-    default raises).  Device tables are int32 ``[L_total, N]``; each
-    transform takes a tuple of limb indices naming the rows that take
-    part."""
+    """NTT tables for a fixed prime chain (Q limbs + specials), each below
+    2^31, on one device: the card unless the caller asks for the CPU
+    (without a GPU the default raises).  Device tables are int32
+    ``[L_total, N]``; each transform takes a tuple of limb indices naming
+    the rows that take part."""
 
     def __init__(self, n: int, primes: Sequence[int], roots: Sequence[int],
                  device="cuda"):
+        if any(not 1 < q < MAX_MODULUS for q in primes):
+            raise ValueError(f"ntt: every modulus must lie in (1, 2^31), not {list(primes)}")
         self.n = n
         self.logn = n.bit_length() - 1
         self.primes = tuple(primes)

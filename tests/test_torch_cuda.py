@@ -27,7 +27,7 @@ from image_matching_tpu_torch.ckks import poly_eval
 from image_matching_tpu_torch.ckks.context import (CkksContext, fbc_plain, ks_mac_plain,
                                                    seeded_c0_plain, seeded_pre_plain)
 from image_matching_tpu_torch.ckks.params import (SchemeParams, compute_required_depth,
-                                                  root_of_unity)
+                                                  find_primes_near, root_of_unity)
 from image_matching_tpu_torch.matching import senders, streaming
 from image_matching_tpu_torch.matching.config import MatchConfig
 from image_matching_tpu_torch.matching.protocol import MatchingProtocol
@@ -162,6 +162,122 @@ def test_ntt_batched_row_pass_every_mode(n):
                             y = a.clone()
                             _k1(plan, y, y, limbs, inverse, None, rb)
                             assert torch.equal(y, want), (batch, inverse, rb, "in place")
+
+
+def _k1_plan(dev, n, wide=False):
+    """A plan over HyDia's chain (14 q limbs, 6 special) at ring n or, with
+    ``wide``, over the two NTT-friendly primes nearest below 2^31, where 2q
+    comes closest to 2^32."""
+    if wide:
+        primes = find_primes_near(1 << 31, 2 * n, 2)
+    else:
+        p = SchemeParams.create(ring_dim=n, mult_depth=compute_required_depth(5, 10),
+                                security="none")
+        primes = p.q_primes + p.sp_primes
+    return ntt.NttPlan(n, primes, [root_of_unity(q, 2 * n) for q in primes], device=dev)
+
+
+def _canonical(x, plan, limbs):
+    q = plan.q[plan.limb_index(limbs).long()].view(len(limbs), 1)
+    return bool(((x >= 0) & (x < q)).all())
+
+
+@pytest.mark.parametrize("logn", [8, 9, 12, 15, 16])
+def test_ntt_lazy_butterflies_every_entry(logn):
+    """K1's lazy butterflies (residues below 2q between stages, canonical
+    again at each transform's end) through imtpu_ntt at HyDia's 20 limbs:
+    batch rows 1, 2, 15, 45 and 48 at the launcher's R' and at a block a
+    row, plain loads, a per-row and a shared permutation and a slice of
+    limbs a batch stride apart, forward and inverse, each bit-exact with
+    the plain transforms."""
+    dev = _device()
+    n = 1 << logn
+    plan = _k1_plan(dev, n)
+    L = len(plan.primes)
+    gen = torch.Generator(device=dev).manual_seed(2100 + logn)
+    for batch in (1, 2, 15, 45, 48):
+        x = _residues(gen, (batch, L, n), plan.q.long()[:, None])
+        perms = torch.from_numpy(np.stack([plan.auto_perm(pow(5, r, 2 * n))
+                                           for r in range(1, batch + 1)])).to(dev)
+        for a, limbs in ((x, tuple(range(L))), (x[:, 2:6], (2, 3, 4, 5))):
+            for perm in (None, perms, perms[:1]):
+                for inverse in (False, True):
+                    plain = plan.inv_plain if inverse else plan.fwd_plain
+                    want = plain(ntt.permute_rows(a, perm), limbs)
+                    for rb in {ntt.rows_per_block(batch, len(limbs), logn), 1}:
+                        got = _k1(plan, torch.empty(a.shape, dtype=torch.int32, device=dev),
+                                  a, limbs, inverse, perm, rb)
+                        assert torch.equal(got, want), (batch, limbs, perm is None, inverse, rb)
+        del x, perms
+
+
+@pytest.mark.parametrize("logn", [8, 15, 16])
+@pytest.mark.parametrize("wide", [False, True])
+def test_ntt_lazy_butterflies_extremes(logn, wide):
+    """K1 on all-(q - 1) inputs and, over the primes just below 2^31, on
+    uniform ones, at the launcher's R' and a block a row: bit-exact with
+    the plain transforms, and the transform and its inverse round trip."""
+    dev = _device()
+    n = 1 << logn
+    plan = _k1_plan(dev, n, wide)
+    L = len(plan.primes)
+    limbs = tuple(range(L))
+    q = plan.q.long()[:, None]
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    top = (q - 1).expand(16, L, n).int().contiguous()
+    for a in (top, _residues(gen, (16, L, n), q)) if wide else (top,):
+        for inverse in (False, True):
+            plain = plan.inv_plain if inverse else plan.fwd_plain
+            want = plain(a, limbs)
+            for rb in {ntt.rows_per_block(16, L, logn), 1}:
+                got = _k1(plan, torch.empty_like(a), a, limbs, inverse, None, rb)
+                assert torch.equal(got, want), (inverse, rb)
+        assert torch.equal(plan.inv(plan.fwd(a, limbs), limbs), a)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("wide", [False, True])
+def test_ntt_passes_alone_leave_canonical_residues(D, wide):
+    """imtpu_ntt_pass's four passes at ring 2^15, each alone (as slot
+    shards run them, with an exchange between), at shards 0 and D - 1: the
+    column pass forward and inverse (in place, with 1/N) over a column
+    block, the row pass forward and inverse at the shard's sub-blocks and
+    inverse gathered from a full-width source; every output canonical and
+    bit-exact with the plain split stages, on uniform and all-(q - 1)
+    inputs."""
+    dev = _device()
+    n = 1 << 15
+    plan = _k1_plan(dev, n, wide)
+    limbs = (0, 1)
+    a_bits = plan.logn - 8
+    E, w = 1 << a_bits, n // D
+    psis, ipsis, q = plan.psis[:2], plan.ipsis[:2], plan.q[:2].long()
+    ninv = plan.ninv[:2].long().view(2, 1)
+    gen = torch.Generator(device=dev).manual_seed(2122)
+    perm = torch.from_numpy(np.stack([plan.auto_perm(pow(5, r, 2 * n)) for r in (1, 7)])).to(dev)
+    for full in (_residues(gen, (2, 2, n), q[:, None]),
+                 (q[:, None] - 1).expand(2, 2, n).int().contiguous()):
+        for s in (0, D - 1):
+            cols = full[..., s * w:(s + 1) * w].contiguous()
+            outs = []
+            got = plan.launch_pass(torch.empty_like(cols), cols, limbs, False, True)
+            outs.append((got, ntt.ntt_fwd_stages(cols.long(), psis, q, 1, E, inner=w // E)))
+            inv = cols.clone()
+            plan.launch_pass(inv, inv, limbs, True, True)
+            want = ntt.ntt_inv_stages(cols.long(), ipsis, q, 1, E, inner=w // E) * ninv % q[:, None]
+            outs.append((inv, want))
+            off = s * E // D
+            got = plan.launch_pass(torch.empty_like(cols), cols, limbs, False, False, off)
+            outs.append((got, ntt.ntt_fwd_stages(cols.long(), psis, q, E, n, nblk=D, blk=s)))
+            got = plan.launch_pass(torch.empty_like(cols), cols, limbs, True, False, off)
+            outs.append((got, ntt.ntt_inv_stages(cols.long(), ipsis, q, E, n, nblk=D, blk=s)))
+            own = perm[:, s * w:(s + 1) * w].contiguous()
+            got = plan.launch_pass(torch.empty_like(cols), full, limbs, True, False, off, own)
+            src = ntt.permute_rows(full, perm)[..., s * w:(s + 1) * w]
+            outs.append((got, ntt.ntt_inv_stages(src.long(), ipsis, q, E, n, nblk=D, blk=s)))
+            for i, (got, want) in enumerate(outs):
+                assert _canonical(got, plan, limbs), (s, i)
+                assert torch.equal(got, want.int()), (s, i)
 
 
 def test_batched_compare_on_card_matches_cpu():

@@ -1,20 +1,24 @@
-"""K1's batched row pass (``csrc/ntt.cu`` ``ntt_rows_batch_kernel``, the
-launcher ``rows_batch_pass`` and ``ops/ntt.py`` ``rows_per_block``)
-emulated in numpy uint64.
+"""K1 (``csrc/ntt.cu``: ``ntt_cols_kernel``, ``ntt_rows_batch_kernel``,
+``ntt_rows_kernel``, the launchers and ``ops/ntt.py``
+``rows_per_block``) emulated in numpy uint64.
 
-No GPU is needed: the emulation walks the kernel's grid block by block
-(block (row group, limb; tile) over batch rows b0 .. b0 + R' of one limb),
-stages each block's twiddles by ``stage_twiddles``' index map (all 255 of
-each sub-block), runs every stage with the staged twiddle the kernel reads
-and its Shoup product (asserting the product's bound), moves the
-registers through the warp's swizzled shared memory between layouts A, B
-and C (asserting every access conflict-free), and loads and stores each
-row in the kernel's edge layouts (forward: A in, C out; inverse: C in,
-through the permutation's indices in C, A out).  The column pass is the
-plain stages (``ntt_fwd_stages`` / ``ntt_inv_stages``, 1/N after the
-inverse's).  It is held bit-exact against ``ntt_fwd_plain`` /
-``ntt_inv_plain``, the JAX plan and, on its first and last batch rows,
-``host_ntt_fwd`` / ``host_ntt_inv``, on
+No GPU is needed.  Every butterfly runs the kernel's lazy arithmetic
+(``red``, ``shoup_lazy``, ``ct`` / ``gs`` and their two-factor forms) and
+asserts that every value it reads or writes lies below 2q; a pass's
+outputs are canonical where the kernel's ``finish`` makes them so.  The
+batched row pass is walked block by block (block (row group, limb; tile)
+over batch rows b0 .. b0 + R' of one limb), stages each block's twiddles
+by ``stage_twiddles``' index map (all 255 of each sub-block), runs every
+stage with the staged twiddle the kernel reads, moves the registers
+through the warp's swizzled shared memory between layouts A, B and C
+(asserting every access conflict-free), and loads and stores each row in
+the kernel's edge layouts (forward: A in, C out; inverse: C in, through
+the permutation's indices in C, A out).  The column pass runs stage by
+stage as its threads' two register layouts pair the elements; the row
+pass a block a row (R' = 1) with the products c_v psis[g] of table blocks
+5-7.  The round trip between the passes is held below 2q.  It is held
+bit-exact against ``ntt_fwd_plain`` / ``ntt_inv_plain``, the JAX plan and,
+on its first and last batch rows, ``host_ntt_fwd`` / ``host_ntt_inv``, on
 HyDia's 20 primes at N = 2^15 (and at N = 2^8, where the row pass is the
 forward's first and the inverse's last, with 1/N), for 1, 2, 15 and 45
 batch rows, with and without a per-row permutation, with a shared one and
@@ -49,24 +53,73 @@ def _plans(n):
     return _PLANS[n]
 
 
-# --- ntt.cu's device helpers on numpy uint64 (r - q wraps above r when r < q) ---
+# --- ntt.cu's device helpers on numpy uint64: the lazy residues, every value
+# a butterfly reads or writes below 2q, canonical only where a pass ends ---
+
+def _lazy(q, *xs):
+    """Assert the lazy invariant: every value below 2q."""
+    for x in xs:
+        assert (x < 2 * q).all(), "a residue reached 2q"
+
+
+def _red(x, q):
+    """red: x mod q for x < 2q (x - q wraps above x in 32 bits when x < q)."""
+    _lazy(q, x)
+    return np.minimum(x, (x - q) & np.uint64(M32))
+
+
+def _shoup_lazy(a, w, wsh, q):
+    """shoup_lazy: a w mod q or that plus q, for any a < 2^32; the bound is
+    asserted on the exact value, which the kernel's 32-bit words wrap to."""
+    assert (a <= M32).all()
+    r = a * w - ((a * wsh) >> np.uint64(32)) * q
+    _lazy(q, r)
+    return r
+
 
 def _shoup(a, w, wsh, q):
-    hi = (a * wsh) >> np.uint64(32)
-    r = (a * w - hi * q) & np.uint64(M32)
-    assert r.max() < 2 * q
-    return np.minimum(r, r - q)
+    """modmath.cuh shoup_mul: the full product, canonical (the 1/N)."""
+    return _red(_shoup_lazy(a, w, wsh, q), q)
+
+
+def _ct_t(u, t, q):
+    t, u = _red(t, q), _red(u, q)
+    return u + t, u - t + q
 
 
 def _ct(u, v, w, q):
-    t = _shoup(v, w[0], w[1], q)
-    s, d = u + t, u + q - t
-    return np.minimum(s, s - q), np.minimum(d, d - q)
+    _lazy(q, v)
+    return _ct_t(u, _shoup_lazy(v, w[0], w[1], q), q)
+
+
+def _ct2(u, v, t, c, q):
+    """ct2: the twiddle as two factors, the inner product below 2q."""
+    _lazy(q, v)
+    return _ct_t(u, _shoup_lazy(_shoup_lazy(v, t[0], t[1], q), c[0], c[1], q), q)
+
+
+def _gs_d(u, v, q):
+    u, v = _red(u, q), _red(v, q)
+    return u + v, u - v + q
 
 
 def _gs(u, v, w, q):
-    s, d = u + v, u + q - v
-    return np.minimum(s, s - q), _shoup(np.minimum(d, d - q), w[0], w[1], q)
+    s, d = _gs_d(u, v, q)
+    return s, _shoup_lazy(d, w[0], w[1], q)
+
+
+def _gs2(u, v, t, c, q):
+    s, d = _gs_d(u, v, q)
+    return s, _shoup_lazy(_shoup_lazy(d, t[0], t[1], q), c[0], c[1], q)
+
+
+def _finish(x, q, div=None, canon=False):
+    """finish: x / N where the inverse ends (div: (ninv, ninv_sh)),
+    canonical where ``canon``, else left below 2q."""
+    if div is not None:
+        return _shoup(x, np.uint64(div[0]), np.uint64(div[1]), q)
+    _lazy(q, x)
+    return _red(x, q) if canon else x
 
 
 def swz(i):
@@ -167,7 +220,7 @@ def emulate_rows_batch(mem, in_off, in_bstride, perm, perm_bstride, out, first, 
                     if not e & h:
                         w = twb(6 + u, (lane << u) + (((e >> 2) << (5 + u)) | ((e & 3) >> (2 - u))))
                         x[..., e], x[..., e + h] = _ct(x[..., e], x[..., e + h], w, q)
-            out[dst + LAY["C"]] = x
+            out[dst + LAY["C"]] = _finish(x, q, canon=True)
         else:
             for ul in range(2):  # bits 0..1, layout C: blocks 7, 6
                 h = 1 << ul
@@ -190,16 +243,95 @@ def emulate_rows_batch(mem, in_off, in_bstride, perm, perm_bstride, out, first, 
                     if not k & h:
                         w = twb(7 - ul, k >> (ul - 4))
                         x[..., k], x[..., k + h] = _gs(x[..., k], x[..., k + h], w, q)
-            if last:
-                x = _shoup(x, np.uint64(ninv[limb]), np.uint64(ninv_sh[limb]), q)
-            out[dst + LAY["A"]] = x
+            out[dst + LAY["A"]] = _finish(x, q, (ninv[limb], ninv_sh[limb]) if last else None)
 
 
-def emulate_k1(plan, x, limbs, inverse, perm=None, lfull=None, loff=0, rb=None):
+def cols_stages(A, inverse):
+    """ntt_cols_kernel's butterflies over the 2^A elements of a column,
+    stage by stage as its loops and two register layouts run them: for
+    each stage, the element pairs (i_u, i_v) of every thread's registers
+    and the staged twiddle each reads (its index into ``stage_twiddles``'
+    entries).  Thread tc < 2^R2 holds x[k] = element (k << R2) | tc in
+    layout A and x[g K2 + k2] = ((tc G + g) << R2) | k2 in layout B
+    (cols_dispatch: R1 = ceil(A / 2), R2 = floor(A / 2))."""
+    R1, R2 = (A + 1) // 2, A // 2
+    E, K2, G = 1 << R1, 1 << R2, 1 << (R1 - R2)
+    lay_a = lambda tc, k: (k << R2) | tc  # noqa: E731
+    lay_b = lambda tc, r: ((tc * G + r // K2) << R2) | (r % K2)  # noqa: E731
+
+    def stage(pairs):
+        iu, iv, t = (np.array(c) for c in zip(*pairs))
+        assert sorted(np.concatenate([iu, iv])) == list(range(1 << A)), "a pair missed"
+        return iu, iv, t
+
+    def in_a(h, tw):  # a stage in layout A: registers k, k + h
+        return stage([(lay_a(tc, k), lay_a(tc, k + h), tw(tc, k))
+                      for tc in range(K2) for k in range(E) if not k & h])
+
+    def in_b(h, tw):  # layout B: registers g K2 + k2, g K2 + k2 + h
+        return stage([(lay_b(tc, g * K2 + k2), lay_b(tc, g * K2 + k2 + h), tw(tc, g, k2))
+                      for tc in range(K2) for g in range(G) for k2 in range(K2) if not k2 & h])
+
+    if not inverse:  # global stage u pairs bit A-1-u; its twiddle group is i >> (A-u)
+        return ([in_a(E >> (u + 1), lambda tc, k, u=u: (1 << u) - 1 + (k >> (R1 - u)))
+                 for u in range(R1)]
+                + [in_b(K2 >> (u + 1), lambda tc, g, k2, u=u: (1 << (R1 + u)) - 1
+                        + (((tc * G + g) << u) | (k2 >> (R2 - u)))) for u in range(R2)])
+    # local stage u pairs bit u; its twiddle group is i >> (u+1), table block A-1-u
+    return ([in_b(1 << u, lambda tc, g, k2, u=u: (1 << (A - 1 - u)) - 1
+                  + (((tc * G + g) << (R2 - u - 1)) | (k2 >> (u + 1)))) for u in range(R2)]
+            + [in_a(1 << u, lambda tc, k, u=u: (1 << (R1 - 1 - u)) - 1 + (k >> (u + 1)))
+               for u in range(R1)])
+
+
+def emulate_cols(x, tw, tw_sh, q, inverse, div=None, canon=False):
+    """ntt_cols_kernel over rows x [B, 2^A, C] of one limb (element i of
+    column j at j + i C, as the kernel loads and stores them): its staged
+    twiddles (stage_twiddles at P = 0: tw[1 .. 2^A)), its stages, then
+    ``_finish``."""
+    x = x.copy()
+    A = x.shape[1].bit_length() - 1
+    st = staged(0, A, 0, 0)
+    for iu, iv, t in cols_stages(A, inverse):
+        w = (tw[st[t]][:, None], tw_sh[st[t]][:, None])
+        x[:, iu], x[:, iv] = (_gs if inverse else _ct)(x[:, iu], x[:, iv], w, q)
+    return _finish(x, q, div, canon)
+
+
+def emulate_rows_alone(x, tw, tw_sh, q, a, inverse, blk_off=0, div=None, canon=False):
+    """ntt_rows_kernel's arithmetic (a block a row) over rows x [B, w] of
+    one limb, stage by stage on each sub-block of 256 (global sub-block
+    blk_off + s): table blocks v < 5 from the staged twiddles, blocks 5-7
+    as the product of the sub-block's factor c_v = tw[2^(a+v) + (blk <<
+    v)] and tw[g] (ct2 / gs2), then ``_finish``."""
+    B, w = x.shape
+    nsub = w >> BITS
+    blk = blk_off + np.arange(nsub)
+    for v in (range(BITS - 1, -1, -1) if inverse else range(BITS)):
+        y = x.reshape(B, nsub, 1 << v, 2, (1 << (BITS - 1)) >> v)
+        g = np.arange(1 << v)
+        base = (1 << (a + v)) + (blk << v)
+        if v < 5:
+            idx = base[:, None] + g[None, :]
+            r = (_gs if inverse else _ct)(y[..., 0, :], y[..., 1, :],
+                                          (tw[idx][..., None], tw_sh[idx][..., None]), q)
+        else:
+            t = (tw[g][:, None], tw_sh[g][:, None])
+            c = (tw[base][:, None, None], tw_sh[base][:, None, None])
+            r = (_gs2 if inverse else _ct2)(y[..., 0, :], y[..., 1, :], t, c, q)
+        x = np.stack(r, axis=-2).reshape(B, w)
+    return _finish(x, q, div, canon)
+
+
+def emulate_k1(plan, x, limbs, inverse, perm=None, lfull=None, loff=0, rb=None, seen=None):
     """K1 (imtpu_ntt) on x [B, L, N] of limbs ``limbs``, read as limbs loff
-    .. loff + L of a [B, lfull, N] buffer (a batch stride of lfull * N):
-    the column pass plain, the row pass emulated at R' = ``rb`` (default
-    the launcher's).  Returns int32 [B, L, N]."""
+    .. loff + L of a [B, lfull, N] buffer (a batch stride of lfull * N),
+    both passes emulated: the column pass stage by stage
+    (``emulate_cols``) and the row pass at R' = ``rb`` (default the
+    launcher's): ``emulate_rows_batch`` above 1, ``emulate_rows_alone`` at
+    1.  The rows' round trip through ``out`` between the passes is held
+    below 2q, its largest value over q of each limb appended to ``seen``.
+    Returns int32 [B, L, N]."""
     B, L, n = x.shape
     logn, a = n.bit_length() - 1, n.bit_length() - 1 - BITS
     lfull = L if lfull is None else lfull
@@ -215,28 +347,59 @@ def emulate_k1(plan, x, limbs, inverse, perm=None, lfull=None, loff=0, rb=None):
     psh, ipsh = plan.psis_sh.numpy().view(np.uint32), plan.ipsis_sh.numpy().view(np.uint32)
     qs, ninv = plan.q.numpy().view(np.uint32), plan.ninv.numpy().view(np.uint32)
     ninv_sh = plan.ninv_sh.numpy().view(np.uint32)
-    q = torch.from_numpy(qs[idx].astype(np.int64))
-    out = np.zeros(B * L * n, dtype=np.uint64)
-    args = dict(limb_idx=idx, L=L, batch=B, rb=rb, logn=logn, qs=qs, ninv=ninv,
-                ninv_sh=ninv_sh)
+    tw, tw_sh = (ipsis, ipsh) if inverse else (psis, psh)
+    out = np.zeros((B, L, n), dtype=np.uint64)
+    rows = np.arange(B)[:, None]
+
+    def loaded(li):  # the first pass's rows of limb li, through perm
+        r = buf[:, loff + li]
+        if perm is None:
+            return r
+        return r[rows, perm] if perm.shape[0] > 1 else r[:, perm[0]]
+
+    def limb(li):
+        k = int(idx[li])
+        return (k, np.uint64(qs[k]), tw[k].astype(np.uint64), tw_sh[k].astype(np.uint64),
+                (ninv[k], ninv_sh[k]))
+
+    def boundary():  # the round trip through out, between the passes
+        for li in range(L):
+            q = np.uint64(qs[idx[li]])
+            _lazy(q, out[:, li])
+            if seen is not None:
+                seen.append((int(out[:, li].max()), int(q)))
+
+    def row_pass(first, last):
+        if rb > 1:
+            emulate_rows_batch(mem, loff * n, lfull * n, pflat, pb, out.reshape(-1), first,
+                               last, idx, L, B, rb, logn, tw, tw_sh, qs, ninv, ninv_sh, inverse)
+            return
+        for li in range(L):
+            _, q, t, tsh, div = limb(li)
+            src = loaded(li) if first else out[:, li]
+            out[:, li] = emulate_rows_alone(src, t, tsh, q, a, inverse,
+                                            div=div if inverse and last else None,
+                                            canon=not inverse)
+
     if not inverse:
-        first = a == 0
-        if not first:  # the column pass, through perm
-            xin = tntt.permute_rows(torch.from_numpy(x.astype(np.int64)),
-                                    None if perm is None else torch.from_numpy(perm))
-            cols = tntt.ntt_fwd_stages(xin, torch.from_numpy(psis[idx].astype(np.int64)), q,
-                                       1, 1 << a)
-            out[:] = cols.numpy().astype(np.uint64).ravel()
-        emulate_rows_batch(mem, loff * n, lfull * n, pflat, pb, out, first, 1, tw=psis,
-                           tw_sh=psh, inverse=False, **args)
-        return out.reshape(B, L, n).astype(np.int32)
-    emulate_rows_batch(mem, loff * n, lfull * n, pflat, pb, out, 1, a == 0, tw=ipsis,
-                       tw_sh=ipsh, inverse=True, **args)
-    y = torch.from_numpy(out.reshape(B, L, n).astype(np.int64))
-    if a:  # the column pass, 1/N folded into its store
-        y = tntt.ntt_inv_stages(y, torch.from_numpy(ipsis[idx].astype(np.int64)), q, 1, 1 << a)
-        y = y * torch.from_numpy(ninv[idx].astype(np.int64)).view(L, 1) % q.view(L, 1)
-    return y.numpy().astype(np.int32)
+        if a:
+            for li in range(L):
+                _, q, t, tsh, _ = limb(li)
+                out[:, li] = emulate_cols(loaded(li).reshape(B, 1 << a, 1 << BITS), t, tsh, q,
+                                          False).reshape(B, n)
+            boundary()
+        row_pass(a == 0, 1)
+    else:
+        row_pass(1, a == 0)
+        if a:
+            boundary()
+            for li in range(L):
+                _, q, t, tsh, div = limb(li)
+                out[:, li] = emulate_cols(out[:, li].reshape(B, 1 << a, 1 << BITS), t, tsh, q,
+                                          True, div=div).reshape(B, n)
+    for li in range(L):
+        assert (out[:, li] < qs[idx[li]]).all(), "an output is not canonical"
+    return out.astype(np.int32)
 
 
 def _residues(B, primes, n):
